@@ -1,0 +1,210 @@
+"""RT-DBSCAN (Algorithm 3) on PyTorch.
+
+Two stages over one fused sweep primitive:
+
+  Stage 1 — core identification: one sweep counts ε-neighbors per point;
+            ``core = counts ≥ minPts`` (self included, sklearn convention).
+  Stage 2 — cluster formation: nothing was stored (the paper's memory-light
+            contract), so each hooking round *re-sweeps* and unions
+            deterministically:
+              root   = find-with-compression (pointer jumping)
+              m_i    = min root over core ε-neighbors of i   (the sweep)
+              hook   parent[root_i] min= m_i   for core i    (scatter-min)
+            Rounds converge in O(log n) (Shiloach–Vishkin).
+  Border — one final sweep attaches each non-core point to the *minimum*
+            core-neighbor root; no core neighbor ⇒ noise (−1).
+
+Round drivers: ``hook_loop="device"`` (the default) runs the hooking rounds
+in *sorted layout* for engines advertising ``sweep_sorted`` (payloads stay
+sorted across rounds; original-order labels are reconstructed once at the
+end). ``hook_loop="host"`` runs the generic per-round loop over the original
+order. Both are Python loops with one host check per round, capped at
+``max_rounds``; labels and round counts equal the JAX reference's.
+``hook_loop="frontier"`` belongs to a later slice of the port and raises.
+
+Labels are component-min core indices; ``labels.compact_labels`` maps them
+to 0..k−1 for reporting.
+"""
+from __future__ import annotations
+
+import time
+from typing import NamedTuple
+
+import torch
+
+from . import neighbors as nb
+from .engines import synchronize
+from .union_find import hook_min, pointer_jump
+
+INT_MAX = nb.INT_MAX
+
+
+class DBSCANResult(NamedTuple):
+    labels: torch.Tensor     # (n,) int32: cluster root id, or -1 for noise
+    core: torch.Tensor       # (n,) bool
+    counts: torch.Tensor     # (n,) int32 ε-neighbor counts (incl. self)
+    n_rounds: int            # stage-2 hooking rounds executed
+    timings: dict | None = None  # host seconds of stage1_s, stage2_s and
+    #   border_s, each ended by a device synchronize
+
+
+def _hook_step(root, m, core):
+    """One stage-2 hooking step (shared by both round drivers): hook each
+    core root onto the min core-neighbor root and recompress."""
+    tgt = torch.minimum(m, root)             # m includes own root for core pts
+    p2 = hook_min(root, root, tgt, valid=core)
+    p2 = pointer_jump(p2)
+    return p2, not torch.equal(p2, root)
+
+
+def _stage1_fn(sweep, state, n: int, device):
+    zeros = torch.zeros((n,), dtype=torch.bool, device=device)
+    iota = torch.arange(n, dtype=torch.int32, device=device)
+    counts, _ = sweep(state, zeros, iota)
+    return counts
+
+
+def _round_fn(sweep, state, parent, core):
+    root = pointer_jump(parent)
+    _, m = sweep(state, core, root)
+    return _hook_step(root, m, core)
+
+
+def _finalize_fn(sweep, state, parent, core):
+    root = pointer_jump(parent)
+    _, m = sweep(state, core, root)
+    return torch.where(core, root,
+                       torch.where(m != INT_MAX, m, -1)).to(torch.int32)
+
+
+def _scatter_sorted(values_s, order, n: int, fill):
+    """Original-order tensor from a sorted-layout one: out[order] = values."""
+    out = torch.full((n,), fill, dtype=values_s.dtype, device=values_s.device)
+    out[order.long()] = values_s
+    return out
+
+
+def _sorted_stage1_fn(sweep_sorted, state, order):
+    n = order.shape[0]
+    croot = torch.full((n,), INT_MAX, dtype=torch.int32, device=order.device)
+    counts_s, _ = sweep_sorted(state, croot)
+    return _scatter_sorted(counts_s, order, n, 0)
+
+
+def _counts_stage1_fn(sweep_counts, state, order):
+    """Stage 1 through the counts-only sweep (no payload plane at all)."""
+    return _scatter_sorted(sweep_counts(state), order, order.shape[0], 0)
+
+
+def _sorted_driver_fn(sweep_sorted, max_rounds: int, state, order, core,
+                      timings: dict):
+    """Sorted-layout stage 2 + border attachment for engines advertising
+    ``sweep_sorted``.
+
+    The union-find runs over *sorted* point ids, so the sweep payloads never
+    leave sorted layout across rounds. Original label ids (component-min
+    original core index) are reconstructed once at the end via a
+    segment-min over ``order``.
+    """
+    t0 = time.perf_counter()
+    n = order.shape[0]
+    core_s = core[order.long()]
+    parent = torch.arange(n, dtype=torch.int32, device=order.device)
+    n_rounds, changed = 0, True
+    while changed and n_rounds < max_rounds:
+        root = pointer_jump(parent)
+        croot = torch.where(core_s, root, INT_MAX)
+        _, m = sweep_sorted(state, croot)
+        parent, changed = _hook_step(root, m, core_s)
+        n_rounds += 1
+    root = pointer_jump(parent)
+    synchronize(order.device)
+    timings["stage2_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    # Brute-identical label ids: min *original* index over the core
+    # members of each sorted-space component.
+    comp_min = torch.full((n,), INT_MAX, dtype=torch.int32,
+                          device=order.device)
+    comp_min.scatter_reduce_(0, root.long(),
+                             torch.where(core_s, order, INT_MAX), "amin",
+                             include_self=True)
+    core_label = comp_min[root.long()]
+    croot = torch.where(core_s, core_label, INT_MAX)
+    _, m = sweep_sorted(state, croot)         # border attachment sweep
+    labels_s = torch.where(core_s, core_label,
+                           torch.where(m != INT_MAX, m, -1)).to(torch.int32)
+    labels = _scatter_sorted(labels_s, order, n, -1)
+    synchronize(order.device)
+    timings["border_s"] = time.perf_counter() - t0
+    return labels, n_rounds
+
+
+def dbscan(points, eps: float, min_pts: int, *, engine: str = "grid",
+           max_rounds: int = 64, precomputed_counts=None,
+           eng: nb.Engine | None = None, hook_loop: str = "device",
+           device=None) -> DBSCANResult:
+    """Cluster ``points`` (n, 3) — 2D data carries z = 0, as in the paper.
+
+    ``device=None`` means ``cuda`` (raising when there is no card); pass
+    ``device="cpu"`` to run the plain PyTorch versions of the kernels.
+    ``precomputed_counts`` implements the paper's §VI-B re-run use case:
+    saved stage-1 counts let a minPts re-run skip core identification.
+    ``eng`` reuses a built engine (then its device is used) across runs of
+    the same dataset. ``hook_loop`` selects the stage-2 round driver:
+    ``"device"`` (default, sorted layout) or ``"host"`` (generic loop).
+    """
+    if hook_loop not in ("device", "host", "frontier"):
+        raise ValueError(f"unknown hook_loop {hook_loop!r}")
+    if hook_loop == "frontier":
+        raise NotImplementedError(
+            "hook_loop='frontier' needs the frontier_sweep kernel, which "
+            "belongs to the frontier slice of the port and is not yet "
+            "ported; use hook_loop='device' or 'host'")
+    if eng is None:
+        eng = nb.make_engine(points, eps, engine=engine, device=device)
+    dev = eng.device
+    n = len(points)
+    timings: dict = {}
+
+    t0 = time.perf_counter()
+    sorted_path = eng.sweep_sorted is not None and hook_loop == "device"
+    if precomputed_counts is not None:
+        counts = torch.as_tensor(precomputed_counts, dtype=torch.int32,
+                                 device=dev)
+    elif sorted_path and eng.sweep_counts is not None:
+        counts = _counts_stage1_fn(eng.sweep_counts, eng.state, eng.order)
+    elif sorted_path:
+        counts = _sorted_stage1_fn(eng.sweep_sorted, eng.state, eng.order)
+    else:
+        counts = _stage1_fn(eng.sweep, eng.state, n, dev)
+    core = counts >= min_pts
+    synchronize(dev)
+    timings["stage1_s"] = time.perf_counter() - t0
+
+    if sorted_path:
+        labels, n_rounds = _sorted_driver_fn(
+            eng.sweep_sorted, max_rounds, eng.state, eng.order, core,
+            timings)
+        return DBSCANResult(labels=labels, core=core, counts=counts,
+                            n_rounds=n_rounds, timings=timings)
+
+    # Generic stage 2: per-round loop over the original order.
+    t0 = time.perf_counter()
+    parent = torch.arange(n, dtype=torch.int32, device=dev)
+    n_rounds = 0
+    for _ in range(max_rounds):
+        parent, changed = _round_fn(eng.sweep, eng.state, parent, core)
+        n_rounds += 1
+        if not changed:
+            break
+    synchronize(dev)
+    timings["stage2_s"] = time.perf_counter() - t0
+
+    # Border attachment + final labels.
+    t0 = time.perf_counter()
+    labels = _finalize_fn(eng.sweep, eng.state, parent, core)
+    synchronize(dev)
+    timings["border_s"] = time.perf_counter() - t0
+    return DBSCANResult(labels=labels, core=core, counts=counts,
+                        n_rounds=n_rounds, timings=timings)

@@ -1,0 +1,118 @@
+"""Capability-based neighbor-engine registry.
+
+One dispatch table for ``make_engine`` and ``dbscan``'s round-driver
+selection. An engine registers once and advertises what it can do through
+the fields of the :class:`Engine` it builds:
+
+  * ``sweep``        — the fused (counts, min-core-root) primitive every
+                       engine must provide;
+  * ``sweep_sorted`` + ``order`` — optional sorted-layout fast path; its
+                       presence opts a run into ``dbscan``'s sorted hooking
+                       loop;
+  * ``sweep_counts`` — optional counts-only stage-1 sweep in sorted layout
+                       (skips the payload plane the stage discards);
+  * ``meta``         — the engine's static plan (``CSRGridSpec``);
+  * ``timings``      — build-time breakdown: ``make_engine`` records
+                       ``build_s``; builders may add finer phases.
+
+The port registers only ``grid``. The reference's other engines (``brute``,
+``grid-hash``, ``bvh``, ``bvh-stack``) are not yet ported; asking for one
+raises ``ValueError``.
+"""
+from __future__ import annotations
+
+import time
+from typing import Any, Callable, NamedTuple
+
+import torch
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` means ``cuda``. Asking for CUDA without a card raises: the
+    port never carries on on the CPU unless the caller says ``"cpu"``."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "repro_torch runs on CUDA by default and no CUDA device is "
+            "available; pass device='cpu' to run the plain PyTorch "
+            "versions on the CPU")
+    return dev
+
+
+def synchronize(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+class Engine(NamedTuple):
+    """A built neighbor-search engine; fields double as capability flags."""
+    name: str
+    state: Any                       # NamedTuple of tensors on ``device``
+    sweep: Callable                  # (state, core, root) -> (counts, minroot)
+    device: torch.device
+    meta: Any = None                 # static plan (CSRGridSpec)
+    sweep_sorted: Callable | None = None  # (state, croot_sorted) ->
+    #                                  (counts, minroot), all in sorted layout
+    order: Any = None                # (n,) sorted position -> original index
+    timings: dict | None = None      # build-time breakdown, seconds
+    sweep_counts: Callable | None = None  # (state) -> counts, sorted layout
+
+
+class EngineSpec(NamedTuple):
+    """Registry entry: how to build an engine, a one-line description, and
+    the capabilities the built Engine will advertise."""
+    name: str
+    build: Callable                  # (points, eps, **kw) -> Engine
+    doc: str = ""
+    capabilities: frozenset = frozenset()
+
+
+_REGISTRY: dict[str, EngineSpec] = {}
+
+
+def register_engine(name: str, build_fn: Callable, *, doc: str = "",
+                    capabilities=()) -> None:
+    """Register (or re-register) a single-device engine builder."""
+    _REGISTRY[name] = EngineSpec(name=name, build=build_fn, doc=doc,
+                                 capabilities=frozenset(capabilities))
+
+
+def _ensure_builtin() -> None:
+    # neighbors imports this module for Engine, so it registers itself here
+    # lazily rather than being imported at the top.
+    from . import neighbors as _nb  # noqa: F401  (grid)
+
+
+def get_engine_spec(name: str) -> EngineSpec:
+    _ensure_builtin()
+    try:
+        return _REGISTRY[name]
+    except KeyError:
+        raise ValueError(
+            f"engine {name!r} is not yet ported to repro_torch; registered "
+            f"engines: {', '.join(available_engines())}") from None
+
+
+def available_engines() -> tuple:
+    _ensure_builtin()
+    return tuple(sorted(_REGISTRY))
+
+
+def make_engine(points, eps: float, *, engine: str = "grid",
+                dims: int | None = None, spec=None, device=None) -> Engine:
+    """Build an engine over ``points`` (n, 3) for radius ``eps``.
+
+    The structure build (plan and cell sort) happens here; its wall-clock
+    is recorded in ``Engine.timings["build_s"]`` (plan included). ``spec``
+    reuses a plan (``CSRGridSpec`` for ``grid``) from the same dataset.
+    ``device=None`` means ``cuda``.
+    """
+    entry = get_engine_spec(engine)
+    dev = resolve_device(device)
+    points = torch.as_tensor(points, dtype=torch.float32, device=dev)
+    t0 = time.perf_counter()
+    eng = entry.build(points, float(eps), dims=dims, spec=spec)
+    synchronize(dev)
+    timings = dict(eng.timings or {})
+    timings.setdefault("build_s", time.perf_counter() - t0)
+    return eng._replace(timings=timings)

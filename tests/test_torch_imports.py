@@ -1,0 +1,69 @@
+"""repro_torch stands alone: importing it loads neither JAX nor the JAX
+package, and its entry points never fall back to the CPU by themselves."""
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import repro_torch
+from repro_torch.core import grid as tgrid
+
+SRC = os.path.join(os.path.dirname(__file__), "..", "src")
+MODULES = ["repro_torch", "repro_torch.core", "repro_torch.core.dbscan",
+           "repro_torch.core.engines", "repro_torch.core.grid",
+           "repro_torch.core.labels", "repro_torch.core.neighbors",
+           "repro_torch.core.union_find", "repro_torch.data",
+           "repro_torch.data.synth", "repro_torch.kernels",
+           "repro_torch.kernels.build", "repro_torch.kernels.csr_sweep",
+           "repro_torch.kernels.ops", "repro_torch.kernels.ref"]
+
+
+def test_import_loads_no_jax_and_no_repro():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {MODULES!r}: importlib.import_module(m)\n"
+        "import repro_torch\n"
+        "repro_torch.dbscan([[0.0, 0.0, 0.0], [0.01, 0.0, 0.0]], 0.1, 2,"
+        " device='cpu')\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or"
+        " m.startswith(('jax.', 'jaxlib', 'repro.')) or m == 'repro')\n"
+        "print('BAD', bad)\n")
+    env = dict(os.environ, PYTHONPATH=SRC)
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "BAD []" in out.stdout, out.stdout
+
+
+def test_entry_points_raise_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    pts = np.zeros((4, 3), np.float32)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        repro_torch.dbscan(pts, 0.1, 2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        repro_torch.make_engine(pts, 0.1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tgrid.plan_csr_grid(pts, 0.1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        repro_torch.dbscan(pts, 0.1, 2, device="cuda")
+    res = repro_torch.dbscan(pts, 0.1, 2, device="cpu")
+    assert res.labels.tolist() == [0, 0, 0, 0]
+
+
+def test_kernel_build_is_keyed_and_raises_without_nvcc(monkeypatch,
+                                                       tmp_path):
+    from repro_torch.kernels import build
+    assert build.sources() == ["csr_sweep"]
+    path = build.library_path("csr_sweep")
+    assert path.parent == build.BUILD_DIR and path.suffix == ".so"
+    monkeypatch.setattr(build, "NVCC_FLAGS", build.NVCC_FLAGS + ("-g",))
+    assert build.library_path("csr_sweep") != path  # flags change the key
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(build.shutil, "which", lambda _: None)
+    monkeypatch.setattr(build.os.path, "exists", lambda _: False)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build.load("csr_sweep")
+    assert list(tmp_path.iterdir()) == []
