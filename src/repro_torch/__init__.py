@@ -7,6 +7,8 @@ PyTorch version. This package imports neither ``jax`` nor ``repro``.
 """
 from .core.dbscan import DBSCANResult, dbscan
 from .core.engines import make_engine
+from .core.neighbors import find_neighbors
 from .data import synth
 
-__all__ = ["DBSCANResult", "dbscan", "make_engine", "synth"]
+__all__ = ["DBSCANResult", "dbscan", "find_neighbors", "make_engine",
+           "synth"]

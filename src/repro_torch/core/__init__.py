@@ -1,2 +1,3 @@
-"""The system: DBSCAN's round drivers, the engine registry, the grid engine
-and its CSR layout, union-find and label helpers."""
+"""The system: DBSCAN's round drivers, the engine registry, the grid,
+grid-hash and brute engines and their layouts, union-find and label
+helpers."""

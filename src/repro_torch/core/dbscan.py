@@ -17,10 +17,13 @@ Two stages over one fused sweep primitive:
 Round drivers: ``hook_loop="device"`` (the default) runs the hooking rounds
 in *sorted layout* for engines advertising ``sweep_sorted`` (payloads stay
 sorted across rounds; original-order labels are reconstructed once at the
-end). ``hook_loop="host"`` runs the generic per-round loop over the original
-order. Both are Python loops with one host check per round, capped at
+end). ``hook_loop="frontier"`` further re-sweeps only the live tiles of
+each round for engines advertising ``sweep_frontier`` (bit-identical labels
+and round count; the cost of rounds 2..k tracks the merge frontier).
+``hook_loop="host"`` runs the generic per-round loop over the original
+order, as do the other two for engines without the capability they need.
+All are Python loops with one host check per round, capped at
 ``max_rounds``; labels and round counts equal the JAX reference's.
-``hook_loop="frontier"`` belongs to a later slice of the port and raises.
 
 Labels are component-min core indices; ``labels.compact_labels`` maps them
 to 0..k−1 for reporting.
@@ -44,12 +47,15 @@ class DBSCANResult(NamedTuple):
     core: torch.Tensor       # (n,) bool
     counts: torch.Tensor     # (n,) int32 ε-neighbor counts (incl. self)
     n_rounds: int            # stage-2 hooking rounds executed
+    frontier_tiles: torch.Tensor | None = None  # (max_rounds,) int32 live
+    #   tiles swept per hooking round (frontier driver only; -1 past
+    #   n_rounds)
     timings: dict | None = None  # host seconds of stage1_s, stage2_s and
     #   border_s, each ended by a device synchronize
 
 
 def _hook_step(root, m, core):
-    """One stage-2 hooking step (shared by both round drivers): hook each
+    """One stage-2 hooking step (shared by all round drivers): hook each
     core root onto the min core-neighbor root and recompress."""
     tgt = torch.minimum(m, root)             # m includes own root for core pts
     p2 = hook_min(root, root, tgt, valid=core)
@@ -122,14 +128,7 @@ def _sorted_driver_fn(sweep_sorted, max_rounds: int, state, order, core,
     timings["stage2_s"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    # Brute-identical label ids: min *original* index over the core
-    # members of each sorted-space component.
-    comp_min = torch.full((n,), INT_MAX, dtype=torch.int32,
-                          device=order.device)
-    comp_min.scatter_reduce_(0, root.long(),
-                             torch.where(core_s, order, INT_MAX), "amin",
-                             include_self=True)
-    core_label = comp_min[root.long()]
+    core_label = _label_ids(root, core_s, order)
     croot = torch.where(core_s, core_label, INT_MAX)
     _, m = sweep_sorted(state, croot)         # border attachment sweep
     labels_s = torch.where(core_s, core_label,
@@ -140,8 +139,70 @@ def _sorted_driver_fn(sweep_sorted, max_rounds: int, state, order, core,
     return labels, n_rounds
 
 
+def _label_ids(root, core_s, order):
+    """Brute-identical label ids from a sorted-space forest: min *original*
+    index over the core members of each component."""
+    n = order.shape[0]
+    comp_min = torch.full((n,), INT_MAX, dtype=torch.int32,
+                          device=order.device)
+    comp_min.scatter_reduce_(0, root.long(),
+                             torch.where(core_s, order, INT_MAX), "amin",
+                             include_self=True)
+    return comp_min[root.long()]
+
+
+def _frontier_driver_fn(frontier, max_rounds: int, state, order, core,
+                        timings: dict):
+    """Frontier-compacted stage 2 + border for engines advertising
+    ``sweep_frontier``.
+
+    Same fixpoint as the sorted driver, but each round re-sweeps only the
+    tiles that can still produce a *new* union — pending (payload changed
+    in the slab since the tile's last sweep) ∧ live seam (slab min core
+    root below some core query's root). Parked tiles yield INT32_MAX
+    min-roots, whose hook is the no-op the full sweep would have produced,
+    so labels and round count are bit-identical to the sorted driver. The
+    pending flags, the previous payload and the per-round live-tile
+    histogram stay on the device; the host checks ``changed`` once a round.
+    """
+    t0 = time.perf_counter()
+    dev = order.device
+    n = order.shape[0]
+    core_s = core[order.long()]
+    parent = torch.arange(n, dtype=torch.int32, device=dev)
+    prev_croot = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    pending = torch.ones((frontier.n_tiles,), dtype=torch.bool, device=dev)
+    hist = torch.full((max_rounds,), -1, dtype=torch.int32, device=dev)
+    n_rounds, changed = 0, True
+    while changed and n_rounds < max_rounds:
+        root = pointer_jump(parent)
+        croot = torch.where(core_s, root, INT_MAX)
+        qroot = torch.where(core_s, root, -1)
+        m, pending, n_live = frontier.sweep(state, croot, qroot,
+                                            croot != prev_croot, pending)
+        hist[n_rounds] = n_live
+        parent, changed = _hook_step(root, m, core_s)
+        prev_croot = croot
+        n_rounds += 1
+    root = pointer_jump(parent)
+    synchronize(dev)
+    timings["stage2_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    core_label = _label_ids(root, core_s, order)
+    # the border sweep also skips tiles whose minroot nobody reads
+    m = frontier.border(state, torch.where(core_s, core_label, INT_MAX),
+                        core_s)
+    labels_s = torch.where(core_s, core_label,
+                           torch.where(m != INT_MAX, m, -1)).to(torch.int32)
+    labels = _scatter_sorted(labels_s, order, n, -1)
+    synchronize(dev)
+    timings["border_s"] = time.perf_counter() - t0
+    return labels, n_rounds, hist
+
+
 def dbscan(points, eps: float, min_pts: int, *, engine: str = "grid",
-           max_rounds: int = 64, precomputed_counts=None,
+           chunk: int = 2048, max_rounds: int = 64, precomputed_counts=None,
            eng: nb.Engine | None = None, hook_loop: str = "device",
            device=None) -> DBSCANResult:
     """Cluster ``points`` (n, 3) — 2D data carries z = 0, as in the paper.
@@ -151,24 +212,25 @@ def dbscan(points, eps: float, min_pts: int, *, engine: str = "grid",
     ``precomputed_counts`` implements the paper's §VI-B re-run use case:
     saved stage-1 counts let a minPts re-run skip core identification.
     ``eng`` reuses a built engine (then its device is used) across runs of
-    the same dataset. ``hook_loop`` selects the stage-2 round driver:
-    ``"device"`` (default, sorted layout) or ``"host"`` (generic loop).
+    the same dataset. ``chunk`` tiles the brute and grid-hash sweeps; the
+    CSR engine's tile size is part of its plan. ``hook_loop`` selects the
+    stage-2 round driver: ``"device"`` (default, sorted layout),
+    ``"frontier"`` (live tiles only; engines without ``sweep_frontier``
+    fall back to the driver ``"device"`` would take) or ``"host"``
+    (generic loop).
     """
     if hook_loop not in ("device", "host", "frontier"):
         raise ValueError(f"unknown hook_loop {hook_loop!r}")
-    if hook_loop == "frontier":
-        raise NotImplementedError(
-            "hook_loop='frontier' needs the frontier_sweep kernel, which "
-            "belongs to the frontier slice of the port and is not yet "
-            "ported; use hook_loop='device' or 'host'")
     if eng is None:
-        eng = nb.make_engine(points, eps, engine=engine, device=device)
+        eng = nb.make_engine(points, eps, engine=engine, chunk=chunk,
+                             device=device)
     dev = eng.device
     n = len(points)
     timings: dict = {}
 
     t0 = time.perf_counter()
-    sorted_path = eng.sweep_sorted is not None and hook_loop == "device"
+    sorted_path = eng.sweep_sorted is not None and \
+        hook_loop in ("device", "frontier")
     if precomputed_counts is not None:
         counts = torch.as_tensor(precomputed_counts, dtype=torch.int32,
                                  device=dev)
@@ -182,6 +244,14 @@ def dbscan(points, eps: float, min_pts: int, *, engine: str = "grid",
     synchronize(dev)
     timings["stage1_s"] = time.perf_counter() - t0
 
+    if sorted_path and hook_loop == "frontier" \
+            and eng.sweep_frontier is not None:
+        labels, n_rounds, hist = _frontier_driver_fn(
+            eng.sweep_frontier, max_rounds, eng.state, eng.order, core,
+            timings)
+        return DBSCANResult(labels=labels, core=core, counts=counts,
+                            n_rounds=n_rounds, frontier_tiles=hist,
+                            timings=timings)
     if sorted_path:
         labels, n_rounds = _sorted_driver_fn(
             eng.sweep_sorted, max_rounds, eng.state, eng.order, core,

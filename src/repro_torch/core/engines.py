@@ -11,12 +11,19 @@ the fields of the :class:`Engine` it builds:
                        loop;
   * ``sweep_counts`` — optional counts-only stage-1 sweep in sorted layout
                        (skips the payload plane the stage discards);
-  * ``meta``         — the engine's static plan (``CSRGridSpec``);
+  * ``neighbors``    — optional neighbor-*list* capability backing
+                       ``find_neighbors``;
+  * ``sweep_frontier`` — optional frontier-compacted stage-2 rounds: a
+                       :class:`FrontierPlan` that lets
+                       ``dbscan(hook_loop="frontier")`` re-sweep only the
+                       tiles that can still produce a union;
+  * ``meta``         — the engine's static plan (``CSRGridSpec`` or
+                       ``GridSpec``);
   * ``timings``      — build-time breakdown: ``make_engine`` records
                        ``build_s``; builders may add finer phases.
 
-The port registers only ``grid``. The reference's other engines (``brute``,
-``grid-hash``, ``bvh``, ``bvh-stack``) are not yet ported; asking for one
+The port registers ``grid``, ``grid-hash`` and ``brute``. The reference's
+BVH engines (``bvh``, ``bvh-stack``) are not yet ported; asking for one
 raises ``ValueError``.
 """
 from __future__ import annotations
@@ -44,6 +51,26 @@ def synchronize(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+class FrontierPlan(NamedTuple):
+    """The ``sweep_frontier`` capability: everything the frontier round
+    driver needs to re-sweep only the live tiles of a hooking round.
+
+      * ``sweep(state, croot_s, qroot_s, changed_s, pending) ->
+        (minroot, pending', n_live)`` — one frontier round: fold
+        ``changed_s`` (payload changed since last round, sorted layout)
+        into ``pending``, intersect with the live-seam test, sweep exactly
+        the live tiles, clear them from ``pending``. Parked tiles return
+        INT32_MAX rows (a no-op for the hook). ``n_live`` is a device
+        scalar.
+      * ``border(state, croot_s, core_s) -> minroot`` — the final border
+        sweep, restricted to tiles with both a core candidate in the slab
+        and a non-core query.
+    """
+    n_tiles: int
+    sweep: Callable
+    border: Callable
+
+
 class Engine(NamedTuple):
     """A built neighbor-search engine; fields double as capability flags."""
     name: str
@@ -56,6 +83,10 @@ class Engine(NamedTuple):
     order: Any = None                # (n,) sorted position -> original index
     timings: dict | None = None      # build-time breakdown, seconds
     sweep_counts: Callable | None = None  # (state) -> counts, sorted layout
+    neighbors: Callable | None = None     # (state, k_max=) -> (idx, counts)
+    sweep_frontier: FrontierPlan | None = None  # frontier-compacted stage-2
+    #                                  rounds; presence opts dbscan's
+    #                                  hook_loop="frontier" in
 
 
 class EngineSpec(NamedTuple):
@@ -80,7 +111,7 @@ def register_engine(name: str, build_fn: Callable, *, doc: str = "",
 def _ensure_builtin() -> None:
     # neighbors imports this module for Engine, so it registers itself here
     # lazily rather than being imported at the top.
-    from . import neighbors as _nb  # noqa: F401  (grid)
+    from . import neighbors as _nb  # noqa: F401  (brute, grid, grid-hash)
 
 
 def get_engine_spec(name: str) -> EngineSpec:
@@ -99,19 +130,22 @@ def available_engines() -> tuple:
 
 
 def make_engine(points, eps: float, *, engine: str = "grid",
-                dims: int | None = None, spec=None, device=None) -> Engine:
+                chunk: int = 2048, dims: int | None = None, spec=None,
+                device=None) -> Engine:
     """Build an engine over ``points`` (n, 3) for radius ``eps``.
 
-    The structure build (plan and cell sort) happens here; its wall-clock
-    is recorded in ``Engine.timings["build_s"]`` (plan included). ``spec``
-    reuses a plan (``CSRGridSpec`` for ``grid``) from the same dataset.
-    ``device=None`` means ``cuda``.
+    The structure build (plan, cell sort or hashing) happens here; its
+    wall-clock is recorded in ``Engine.timings["build_s"]`` (plan
+    included). ``spec`` reuses a plan (``CSRGridSpec`` for ``grid``,
+    ``GridSpec`` for ``grid-hash``) from the same dataset. ``chunk`` tiles
+    the brute and grid-hash query sweeps; the CSR engine's tile size is
+    part of its plan. ``device=None`` means ``cuda``.
     """
     entry = get_engine_spec(engine)
     dev = resolve_device(device)
     points = torch.as_tensor(points, dtype=torch.float32, device=dev)
     t0 = time.perf_counter()
-    eng = entry.build(points, float(eps), dims=dims, spec=spec)
+    eng = entry.build(points, float(eps), chunk=chunk, dims=dims, spec=spec)
     synchronize(dev)
     timings = dict(eng.timings or {})
     timings.setdefault("build_s", time.perf_counter() - t0)

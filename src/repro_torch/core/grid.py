@@ -1,19 +1,31 @@
-"""Cell-sorted CSR layout of the grid engine.
+"""The ε-grids of the grid and grid-hash engines.
 
-Points are reordered by the Morton code of their ε-cell, so that every query
-tile's candidates form one contiguous slab of the sorted array, sized by the
-tile's actual local occupancy: O(n) memory and O(n · window) work.
+**Cell-sorted CSR layout** (engine ``grid``). Points are reordered by the
+Morton code of their ε-cell, so that every query tile's candidates form one
+contiguous slab of the sorted array, sized by the tile's actual local
+occupancy: O(n) memory and O(n · window) work. ``plan_csr_grid`` (host)
+runs the same sort-by-cell pass the build runs and measures the worst
+per-tile slab extent, which fixes the static slab capacity;
+``build_csr_grid`` (device) sorts and derives per-tile slabs.
+``slab_payload_min``, ``slab_touched`` and ``compact_tiles`` serve the
+frontier round driver's live-tile test.
 
-``plan_csr_grid`` (host) runs the same sort-by-cell pass the build runs and
-measures the worst per-tile slab extent, which fixes the static slab
-capacity; ``build_csr_grid`` (device) sorts and derives per-tile slabs.
+**Capacity-padded spatial hash** (engine ``grid-hash``). Points are binned
+by a hash of their ε-cell into an (H, C) table; a query's candidates are
+the buckets of its 9/27 adjacent cells. ``plan_grid`` (host) fixes H and
+the bucket capacity C = max occupancy, so ``build_grid`` can never drop a
+point; ``neighbor_buckets`` gives each point its window's bucket ids.
+Aliased far-away cells are removed by the exact d² test of the sweep.
+
 ``spec_from_fields`` and ``grid_from_arrays`` rebuild a plan and a built
-grid from plain fields and numpy arrays, e.g. those of the JAX reference.
+grid of either kind from plain fields and numpy arrays, e.g. those of the
+JAX reference.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+import warnings
 from typing import NamedTuple
 
 import numpy as np
@@ -24,6 +36,140 @@ from .engines import resolve_device
 
 BIG = 1e30
 INT32_MAX = np.iinfo(np.int32).max
+# Teschner et al.'s spatial-hash primes
+_HASH_K = (73856093, 19349663, 83492791)
+_U32 = 0xFFFFFFFF
+
+
+@dataclasses.dataclass(frozen=True)
+class GridSpec:
+    """Static plan of the spatial-hash grid for one (dataset, ε)
+    (hashable)."""
+    side: float           # cell side (≥ ε)
+    origin: tuple         # (3,) domain min, for quantization precision
+    table_size: int       # H, power of two
+    capacity: int         # C, max points per bucket (measured at plan time)
+    dims: int             # 2 or 3 (z ignored for 2D)
+
+    @property
+    def n_offsets(self) -> int:
+        return 9 if self.dims == 2 else 27
+
+
+class Grid(NamedTuple):
+    """Device-side spatial-hash grid buffers."""
+    points: torch.Tensor  # (H, C, 3) f32, padded with +BIG
+    index: torch.Tensor   # (H, C) int32 original point index, -1 padding
+    valid: torch.Tensor   # (H, C) bool
+    order: torch.Tensor   # (n,) int32 sort order (bucket-major)
+    bucket: torch.Tensor  # (n,) int32 bucket id per original point
+
+
+def _hash_cells(cx, cy, cz, table_size: int) -> torch.Tensor:
+    """The reference's spatial hash, with its uint32 wraparound: computed
+    in int64, where each uint32 cell times a prime stays below 2^59 and the
+    low bits kept by ``& (H - 1)`` (H ≤ 2^32) are those of the wrapped
+    product."""
+    h = ((cx.to(torch.int64) & _U32) * _HASH_K[0]
+         ^ (cy.to(torch.int64) & _U32) * _HASH_K[1]
+         ^ (cz.to(torch.int64) & _U32) * _HASH_K[2])
+    return (h & (table_size - 1)).to(torch.int32)
+
+
+def _quantize(points: torch.Tensor, spec: GridSpec) -> torch.Tensor:
+    """Integer cell coordinates (n, 3); z is 0 for 2D. Both constants are
+    rounded once to f32, as in the reference."""
+    inv = torch.tensor(1.0 / spec.side, dtype=points.dtype,
+                       device=points.device)
+    org = torch.tensor(spec.origin, dtype=points.dtype, device=points.device)
+    c = torch.floor((points - org) * inv).to(torch.int32)
+    if spec.dims == 2:
+        c[:, 2] = 0
+    return c
+
+
+def plan_grid(points_np: np.ndarray, eps: float, *, dims: int = 3,
+              target_occupancy: float = 8.0, capacity_round: int = 8,
+              max_table_size: int = 1 << 22) -> GridSpec:
+    """Host-side planning pass: fixes H and C so the build is exact (one
+    O(n) pass on the CPU: quantize, hash, bincount)."""
+    n = len(points_np)
+    origin = tuple(float(v) for v in points_np.min(axis=0))
+    table_size = 1 << max(6, math.ceil(math.log2(max(n / target_occupancy,
+                                                     1.0))))
+    table_size = min(table_size, max_table_size)
+    spec = GridSpec(side=float(eps), origin=origin, table_size=table_size,
+                    capacity=0, dims=dims)
+    c = _quantize(torch.as_tensor(np.asarray(points_np, np.float32)), spec)
+    h = _hash_cells(c[:, 0], c[:, 1], c[:, 2], table_size)
+    occ = torch.bincount(h.long(), minlength=table_size)
+    cap = int(occ.max()) if n else 1
+    cap = max(capacity_round, ((cap + capacity_round - 1) // capacity_round)
+              * capacity_round)
+    if table_size * cap > 64 * max(n, 1):
+        warnings.warn(
+            f"plan_grid: skewed occupancy — max bucket holds {int(occ.max())}"
+            f" of {n} points, so the (H, C) table is ({table_size}, {cap}) = "
+            f"{table_size * cap} slots ({table_size * cap / max(n, 1):.1f}x "
+            f"the point count) and every query sweeps "
+            f"{9 if dims == 2 else 27} x {cap} candidates; the cell-sorted "
+            "CSR engine (engine='grid') avoids this blow-up",
+            RuntimeWarning, stacklevel=2)
+    return dataclasses.replace(spec, capacity=cap)
+
+
+def build_grid(points: torch.Tensor, spec: GridSpec) -> Grid:
+    """Sort-based spatial-hash build on the points' device. A point whose
+    bucket rank reaches the capacity (a plan from other data) is dropped,
+    as in the reference; it lands in a spare slot that is cut off."""
+    n = points.shape[0]
+    dev = points.device
+    H, C = spec.table_size, spec.capacity
+    c = _quantize(points, spec)
+    bucket = _hash_cells(c[:, 0], c[:, 1], c[:, 2], H)
+    order = torch.argsort(bucket, stable=True).to(torch.int32)
+    bsorted = bucket[order.long()]
+    start = torch.searchsorted(bsorted, torch.arange(H, dtype=torch.int32,
+                                                     device=dev),
+                               out_int32=True)
+    rank = torch.arange(n, dtype=torch.int32, device=dev) \
+        - start[bsorted.long()]
+    slot = torch.where(rank < C, bsorted.long() * C + rank, H * C)
+    gpoints = torch.full((H * C + 1, 3), BIG, dtype=torch.float32, device=dev)
+    gindex = torch.full((H * C + 1,), -1, dtype=torch.int32, device=dev)
+    gvalid = torch.zeros((H * C + 1,), dtype=torch.bool, device=dev)
+    gpoints[slot] = points[order.long()].to(torch.float32)
+    gindex[slot] = order
+    gvalid[slot] = True
+    return Grid(points=gpoints[:H * C].reshape(H, C, 3),
+                index=gindex[:H * C].reshape(H, C),
+                valid=gvalid[:H * C].reshape(H, C), order=order,
+                bucket=bucket)
+
+
+def neighbor_buckets(points: torch.Tensor, spec: GridSpec) -> tuple:
+    """Per-point candidate window: bucket ids of the 9/27 adjacent cells.
+
+    Returns (buckets (n, OFF) int32, cell_valid (n, OFF) bool); a bucket id
+    repeated within a row (hash aliasing of distinct offsets) is valid only
+    at its first slot, so no candidate counts twice.
+    """
+    c = _quantize(points, spec)
+    rng = (-1, 0, 1)
+    offs = torch.tensor([(dx, dy, dz) for dx in rng for dy in rng
+                         for dz in (rng if spec.dims == 3 else (0,))],
+                        dtype=torch.int32, device=points.device)
+    cells = c[:, None, :] + offs[None, :, :]
+    b = _hash_cells(cells[..., 0], cells[..., 1], cells[..., 2],
+                    spec.table_size)
+    # a slot is a duplicate iff an earlier slot of its row (in stable sort
+    # order) holds the same bucket
+    sidx = torch.argsort(b, dim=1, stable=True)
+    srt = torch.gather(b, 1, sidx)
+    dup_sorted = torch.cat([torch.zeros_like(srt[:, :1], dtype=torch.bool),
+                            srt[:, 1:] == srt[:, :-1]], dim=1)
+    dup = torch.empty_like(dup_sorted).scatter_(1, sidx, dup_sorted)
+    return b, ~dup
 
 
 @dataclasses.dataclass(frozen=True)
@@ -140,6 +286,61 @@ def tile_slabs(lo, hi, n: int, *, n_tiles: int, chunk: int, block_k: int,
     return start.to(torch.int32), nblk.to(torch.int32), overflow
 
 
+def slab_payload_min(payload, starts, nblk, *, block_k: int,
+                     max_blocks: int):
+    """Per-tile min of ``payload`` over the tile's live slab blocks.
+
+    payload (n_cand,) int32 — sorted-layout plane (INT32_MAX padding);
+    returns (T,) int32. A block-granular min, then one (T, max_blocks)
+    gather masked by ``j < nblk``: a few passes over the payload plane, far
+    below one sweep.
+    """
+    nb_tot = payload.shape[0] // block_k
+    blk_min = payload.reshape(nb_tot, block_k).amin(dim=1)
+    starts_blk = torch.div(starts, block_k, rounding_mode="floor")
+    j = torch.arange(max_blocks, device=payload.device)
+    idx = torch.clamp(starts_blk[:, None].long() + j, 0, nb_tot - 1)
+    vals = torch.where(j < nblk[:, None], blk_min[idx], INT32_MAX)
+    return vals.amin(dim=1).to(torch.int32)
+
+
+def slab_touched(flags, starts, nblk, n: int, *, block_k: int):
+    """Per-tile "any flagged point in my slab" — the dirty-block test.
+
+    flags (n,) bool in sorted layout; returns (T,) bool. One prefix sum
+    over the point plane, then a two-gather range count per tile's
+    contiguous slab ``[starts, starts + nblk·block_k)``.
+    """
+    cum = torch.cat([torch.zeros((1,), dtype=torch.int32,
+                                 device=flags.device),
+                     torch.cumsum(flags.to(torch.int32), 0,
+                                  dtype=torch.int32)])
+    lo = torch.clamp(starts, 0, n).long()
+    hi = torch.clamp(starts + nblk * block_k, 0, n).long()
+    return cum[hi] > cum[lo]
+
+
+def compact_tiles(live):
+    """Compact live tile ids to the front: (active (T,) int32, n_live ()
+    int32), both on ``live``'s device and computed there without a host
+    sync.
+
+    Entries at positions >= n_live repeat the last live id (0 when none),
+    the park contract of ``kernels/frontier_sweep.py``. Dead tiles scatter
+    to one spare slot past the end, which is cut off.
+    """
+    T = live.shape[0]
+    idx = torch.arange(T, dtype=torch.int32, device=live.device)
+    n_live = live.sum(dtype=torch.int32)
+    pos = torch.cumsum(live.to(torch.int32), 0, dtype=torch.int32) - 1
+    active = torch.zeros((T + 1,), dtype=torch.int32, device=live.device)
+    active[torch.where(live, pos, T).long()] = idx
+    active = active[:T]
+    park = active[torch.clamp(n_live - 1, 0, max(T - 1, 0)).reshape(1)
+                  .long()]
+    return torch.where(idx < n_live, active, park), n_live
+
+
 def plan_csr_grid(points_np: np.ndarray, eps: float, *, dims: int = 3,
                   chunk: int = 256, block_k: int = 512,
                   margin_blocks: int = 1, device=None) -> CSRGridSpec:
@@ -202,21 +403,27 @@ def build_csr_grid(points: torch.Tensor, spec: CSRGridSpec) -> CSRGrid:
                    starts=starts, nblk=nblk, overflow=overflow, codes=codes)
 
 
-def spec_from_fields(d: dict) -> CSRGridSpec:
-    """A ``CSRGridSpec`` from a plain dict of its fields (for example
-    ``dataclasses.asdict`` of the reference's spec)."""
-    kw = {f.name: d[f.name] for f in dataclasses.fields(CSRGridSpec)}
+def spec_from_fields(d: dict, kind=CSRGridSpec):
+    """A plan of ``kind`` (``CSRGridSpec`` or ``GridSpec``) from a plain
+    dict of its fields (for example ``dataclasses.asdict`` of the
+    reference's spec)."""
+    kw = {f.name: d[f.name] for f in dataclasses.fields(kind)}
     kw["origin"] = tuple(float(v) for v in kw["origin"])
-    return CSRGridSpec(**kw)
+    return kind(**kw)
 
 
-def grid_from_arrays(d: dict, device) -> CSRGrid:
-    """A ``CSRGrid`` on ``device`` from numpy arrays of a built grid's
-    fields (for example those of the reference's ``CSRGrid``)."""
-    dtypes = {"q_sorted": torch.float32, "cands": torch.float32,
-              "overflow": torch.bool}
-    return CSRGrid(**{
+_FLOAT_FIELDS = ("q_sorted", "cands", "points")
+_BOOL_FIELDS = ("overflow", "valid")
+
+
+def grid_from_arrays(d: dict, device, kind=CSRGrid):
+    """A built grid of ``kind`` (``CSRGrid`` or ``Grid``) on ``device`` from
+    numpy arrays of its fields (for example those of the reference's
+    ``CSRGrid`` or ``Grid``)."""
+    def dtype(name):
+        return (torch.float32 if name in _FLOAT_FIELDS else
+                torch.bool if name in _BOOL_FIELDS else torch.int32)
+    return kind(**{
         name: torch.as_tensor(np.array(d[name]),  # an owned, writable copy
-                              dtype=dtypes.get(name, torch.int32),
-                              device=device)
-        for name in CSRGrid._fields})
+                              dtype=dtype(name), device=device)
+        for name in kind._fields})

@@ -21,14 +21,11 @@ are bit-identical (the d² arithmetic is ``ref._dist2``'s).
 """
 from __future__ import annotations
 
-import ctypes
-import functools
-
 import numpy as np
 import torch
 
 from . import build
-from .ref import INT_MAX, _dist2
+from .ref import INT_MAX, _dist2, eps2_tensor
 
 # Launches of each kernel since the last reset_launches(); the plain
 # versions never count.
@@ -89,7 +86,7 @@ def _sweep_plain(queries, cands_planar, croot, starts_blk, nblk, eps2, *,
     T = starts_blk.shape[0]
     dev = queries.device
     q = queries.reshape(T, -1, 3)
-    eps2_t = torch.tensor(_eps2_f32(eps2), dtype=torch.float32, device=dev)
+    eps2_t = eps2_tensor(eps2, dev)
     counts = torch.zeros(q.shape[:2], dtype=torch.int32, device=dev)
     minroot = torch.full(q.shape[:2], INT_MAX, dtype=torch.int32, device=dev)
     nb = torch.clamp(nblk, 0, max_blocks)
@@ -124,36 +121,10 @@ def csr_sweep_counts_plain(queries, cands_planar, starts_blk, nblk, eps2, *,
                         max_blocks=max_blocks, block_k=block_k)[0]
 
 
-def _ptr(x: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(x.data_ptr())
-
-
-@functools.cache
-def _library() -> ctypes.CDLL:
-    """The kernels' library, built at first use, with its C signatures."""
-    lib = build.load("csr_sweep")
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.csr_sweep_launch.argtypes = [i, p, p, p, p, p, f, i, i, i, i, i, p,
-                                     p, p]
-    lib.csr_sweep_launch.restype = i
-    lib.csr_sweep_counts_launch.argtypes = [i, p, p, p, p, f, i, i, i, i, i,
-                                            p, p]
-    lib.csr_sweep_counts_launch.restype = i
-    lib.csr_sweep_error_string.argtypes = [i]
-    lib.csr_sweep_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-def _raise_on(lib, err: int, kernel: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{kernel} launch failed: CUDA error {err} "
-                           f"({lib.csr_sweep_error_string(err).decode()})")
-
-
-def _cuda_or_raise(x: torch.Tensor) -> None:
+def _cuda_or_raise(x: torch.Tensor, kernel: str) -> None:
     if x.device.type != "cuda":
-        raise ValueError(f"csr_sweep kernels take CPU tensors (plain "
-                         f"version) or CUDA tensors, not {x.device}")
+        raise ValueError(f"{kernel} takes CPU tensors (plain version) or "
+                         f"CUDA tensors, not {x.device}")
 
 
 def csr_sweep(queries, cands_planar, croot, starts_blk, nblk, eps2, *,
@@ -174,21 +145,17 @@ def csr_sweep(queries, cands_planar, croot, starts_blk, nblk, eps2, *,
     if queries.device.type == "cpu":
         return csr_sweep_plain(queries, cands_planar, croot, starts_blk, nblk,
                                eps2, max_blocks=max_blocks, block_k=block_k)
-    _cuda_or_raise(queries)
+    _cuda_or_raise(queries, "csr_sweep")
     counts = torch.empty(queries.shape[0], dtype=torch.int32,
                          device=queries.device)
     minroot = torch.empty_like(counts)
     if starts_blk.shape[0] == 0:
         return counts, minroot
-    lib = _library()
-    with torch.cuda.device(queries.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.csr_sweep_launch(
-            queries.device.index, _ptr(queries), _ptr(cands_planar),
-            _ptr(croot), _ptr(starts_blk), _ptr(nblk), _eps2_f32(eps2),
-            starts_blk.shape[0], block_q, cands_planar.shape[1], max_blocks,
-            block_k, _ptr(counts), _ptr(minroot), ctypes.c_void_p(stream))
-    _raise_on(lib, err, "csr_sweep")
+    build.launch("csr_sweep", "csr_sweep_launch", "pppppfiiiiipp",
+                 "csr_sweep", queries.device, queries, cands_planar, croot,
+                 starts_blk, nblk, _eps2_f32(eps2), starts_blk.shape[0],
+                 block_q, cands_planar.shape[1], max_blocks, block_k, counts,
+                 minroot)
     LAUNCHES["csr_sweep"] += 1
     return counts, minroot
 
@@ -203,19 +170,14 @@ def csr_sweep_counts(queries, cands_planar, starts_blk, nblk, eps2, *,
         return csr_sweep_counts_plain(queries, cands_planar, starts_blk, nblk,
                                       eps2, max_blocks=max_blocks,
                                       block_k=block_k)
-    _cuda_or_raise(queries)
+    _cuda_or_raise(queries, "csr_sweep_counts")
     counts = torch.empty(queries.shape[0], dtype=torch.int32,
                          device=queries.device)
     if starts_blk.shape[0] == 0:
         return counts
-    lib = _library()
-    with torch.cuda.device(queries.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.csr_sweep_counts_launch(
-            queries.device.index, _ptr(queries), _ptr(cands_planar),
-            _ptr(starts_blk), _ptr(nblk), _eps2_f32(eps2),
-            starts_blk.shape[0], block_q, cands_planar.shape[1], max_blocks,
-            block_k, _ptr(counts), ctypes.c_void_p(stream))
-    _raise_on(lib, err, "csr_sweep_counts")
+    build.launch("csr_sweep", "csr_sweep_counts_launch", "ppppfiiiiip",
+                 "csr_sweep_counts", queries.device, queries, cands_planar,
+                 starts_blk, nblk, _eps2_f32(eps2), starts_blk.shape[0],
+                 block_q, cands_planar.shape[1], max_blocks, block_k, counts)
     LAUNCHES["csr_sweep_counts"] += 1
     return counts

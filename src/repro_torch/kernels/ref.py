@@ -9,9 +9,18 @@ as in the reference path it is plain tensor code, not a kernel.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 INT_MAX = 2**31 - 1
+
+
+def eps2_tensor(eps2: float, device) -> torch.Tensor:
+    """ε² rounded once to f32, as a 0-dim tensor on ``device``: the plain
+    versions compare d² with it (a comparison with a Python float is not
+    promised to round ε² the same way)."""
+    return torch.tensor(float(np.float32(eps2)), dtype=torch.float32,
+                        device=device)
 
 
 def _dist2(q: torch.Tensor, c: torch.Tensor) -> torch.Tensor:

@@ -1,7 +1,8 @@
 """repro_torch ``dbscan`` on the CPU against the JAX reference
 ``repro.core.dbscan.dbscan`` on the same data: ``labels``, ``core``,
-``counts`` and ``n_rounds`` must be bit-identical, for both round drivers
-(``hook_loop="device"`` and ``"host"``)."""
+``counts`` and ``n_rounds`` must be bit-identical, for the round drivers
+``hook_loop="device"`` and ``"host"`` (the frontier driver has its own
+file, ``test_torch_frontier.py``)."""
 import numpy as np
 import pytest
 
@@ -93,11 +94,16 @@ def test_cpu_run_launches_no_kernel():
 
 
 def test_frontier_and_unknown_options_raise():
+    # hook_loop="frontier" is ported: it matches the reference, histogram
+    # included; unknown options and unported engines still raise
     pts = synth.blobs(100, k=2, seed=1)
-    with pytest.raises(NotImplementedError, match="frontier"):
-        dbscan(pts, 0.08, 5, hook_loop="frontier", device="cpu")
+    ref = jdbscan(pts, 0.08, 5, hook_loop="frontier")
+    port = dbscan(pts, 0.08, 5, hook_loop="frontier", device="cpu")
+    _assert_same(ref, port)
+    np.testing.assert_array_equal(np.asarray(ref.frontier_tiles),
+                                  port.frontier_tiles.numpy())
     with pytest.raises(ValueError, match="unknown hook_loop"):
         dbscan(pts, 0.08, 5, hook_loop="fronteer", device="cpu")
-    for name in ("brute", "grid-hash", "bvh", "bvh-stack", "nope"):
+    for name in ("bvh", "bvh-stack", "nope"):
         with pytest.raises(ValueError, match="not yet ported.*grid"):
             make_engine(pts, 0.08, engine=name, device="cpu")
