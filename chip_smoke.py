@@ -3,10 +3,12 @@
 
     python3 chip_smoke.py
 
-Drives the port's paths of batch DBSCAN on the card and exits non-zero on
-any failure. Paths: the grid engine with the ``device`` round driver (the
-main path) and with the ``frontier`` driver, the ``grid-hash`` engine and
-the ``brute`` engine. Phases:
+Drives the port's paths on the card and exits non-zero on any failure.
+Paths: batch DBSCAN on the grid engine with the ``device`` round driver
+(the main path) and with the ``frontier`` driver, on the ``grid-hash``
+engine and on the ``brute`` engine; and single-session serving
+(``serve``: ``build_snapshot``, ``assign``, ``ServeSession.ingest`` with
+compaction, snapshot save and load). Phases:
 
   1. environment: the card's name and power limit (nvidia-smi);
   2. build: every kernel source in src/repro_torch/csrc, one nvcc each,
@@ -16,19 +18,28 @@ the ``brute`` engine. Phases:
      sweeps, pairs at exactly d² = ε² (and the float below), tiles with
      nblk = 0, frontier slots with n_active = 0, 1 and T under the park
      contract, windows with invalid and duplicate-masked cells, and 64
-     seeded tiles (chunks) of the full-size roadnet2d layouts;
+     seeded tiles (chunks) of the full-size roadnet2d layouts (for
+     cross_sweep, of the layout of an assign of 32,768 fresh points; its
+     float output mind2 bit-identical too);
   4. whole path at n = 20,000 (roadnet2d, iono3d), every path:
      device="cpu" with the plain versions against the card with the
      kernels, bit-identical labels, core, counts, n_rounds and frontier
      histogram; ``find_neighbors`` of every engine at n = 4,000, cpu
-     against cuda;
+     against cuda; serving at n = 20,000 roadnet2d (build_snapshot, assign
+     of 4,096 fresh points, 4 ingests of 1,024, a forced compaction), cpu
+     against cuda: labels, counts and dist bit-identical;
   5. whole path at full size (roadnet2d 435,000 at ε = 0.02, minPts = 8;
      iono3d 1,000,000 at ε = 2.0, minPts = 16), every path: kernel launch
      counts set to 0 before and read after each run, labels, core and
      counts identical across the four paths and n_rounds equal between the
      device and frontier drivers, DBSCAN invariants, counts at 4,096
      seeded points against a brute-force count over the whole corpus,
-     phase times, the frontier histogram and pair tests per sweep;
+     phase times, the frontier histogram and pair tests per sweep; the
+     serve path on both corpora: build_snapshot, assign of 32,768 fresh
+     points (4,096 of them against a brute-force predict over the whole
+     corpus), 2,048-point ingests until the session compacts (labels
+     identical to dbscan on the concatenation), save and load, assign
+     again (identical);
   6. kernel times at the full-size shapes of each kernel's path (median of
      5 launches, CUDA events), beside the plain version's time and the
      least time the card could take (bound).
@@ -44,6 +55,7 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -78,6 +90,16 @@ PATHS = {
     "grid-hash": (dict(engine="grid-hash"), ("gathered_sweep",)),
     "brute": (dict(engine="brute"), ("pairwise_sweep",)),
 }
+# serving: build_snapshot (csr_sweep_counts, frontier_sweep), assign
+# (cross_sweep), ingest (cross_sweep, pairwise_sweep), compaction (a
+# build_snapshot)
+SERVE_KERNELS = ("csr_sweep_counts", "frontier_sweep", "cross_sweep",
+                 "pairwise_sweep")
+ASSIGN_Q = 32_768     # fresh points per assign at full size (largest bucket)
+INGEST_CHUNK = 2_048  # points per ingest at full size
+DELTA_CAP = 16_384    # the session's delta_capacity at full size
+REDUCED_SERVE = (4_096, 4, 1_024)  # assign points, ingests, points each
+PREDICT_CHECK = 4_096  # assigned points held against brute-force predict
 KERNELS = {  # name: (source, the TPU kernel it replaces)
     "csr_sweep": ("src/repro_torch/csrc/csr_sweep.cu",
                   "src/repro/kernels/csr_sweep.py:146"),
@@ -89,6 +111,8 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
                        "src/repro/kernels/pairwise_sweep.py:68"),
     "gathered_sweep": ("src/repro_torch/csrc/gathered_sweep.cu",
                        "src/repro/kernels/gathered_sweep.py:55"),
+    "cross_sweep": ("src/repro_torch/csrc/csr_sweep.cu",
+                    "src/repro/kernels/cross_sweep.py:94"),
 }
 
 
@@ -119,17 +143,20 @@ class Env:
         import torch
 
         import repro_torch
+        from repro_torch import serve
         from repro_torch.core import neighbors
-        from repro_torch.kernels import (build, csr_sweep, frontier_sweep,
-                                         gathered_sweep, ops, pairwise_sweep,
-                                         ref)
+        from repro_torch.kernels import (build, cross_sweep, csr_sweep,
+                                         frontier_sweep, gathered_sweep, ops,
+                                         pairwise_sweep, ref)
+        from repro_torch.serve import snapshot
         self.torch, self.repro_torch = torch, repro_torch
         self.build, self.ops, self.ref = build, ops, ref
         self.csr, self.frontier = csr_sweep, frontier_sweep
         self.pairwise, self.gathered = pairwise_sweep, gathered_sweep
+        self.cross, self.serve, self.snapshot = cross_sweep, serve, snapshot
         self.nb = neighbors
         self.modules = (csr_sweep, frontier_sweep, pairwise_sweep,
-                        gathered_sweep)
+                        gathered_sweep, cross_sweep)
         self.dev = torch.device("cuda")
 
     def reset_launches(self) -> None:
@@ -241,6 +268,19 @@ def compare_gathered(E, q, cp, croot, eps2):
     p = E.gathered.gathered_sweep_plain(q, cp, croot, eps2)
     same(E, "gathered_sweep counts", k[0], p[0])
     same(E, "gathered_sweep minroot", k[1], p[1])
+    return k
+
+
+def compare_cross(E, arrays, eps2, *, max_blocks, block_q, block_k):
+    """cross_sweep against its plain version on the same tensors, all three
+    outputs (mind2, a float, included) bit for bit; returns the kernel's."""
+    q, cp, croot, st, nb = (E.tensor(x) for x in arrays)
+    kw = dict(max_blocks=max_blocks, block_k=block_k)
+    k = E.cross.cross_sweep(q, cp, croot, st, nb, eps2, block_q=block_q,
+                            **kw)
+    p = E.cross.cross_sweep_plain(q, cp, croot, st, nb, eps2, **kw)
+    for what, a, b in zip(("counts", "minroot", "mind2"), k, p):
+        same(E, f"cross_sweep {what}", a, b)
     return k
 
 
@@ -373,6 +413,89 @@ def parity_gathered(E, road):
         f"{road['chunk']} queries x {road['window']} window: bit-identical")
 
 
+def parity_cross(E, road):
+    bk = 128
+    for T, bq, ncb, sb in SHAPES:
+        q, cp, croot, st, nb = _mk_slab(T, bq, ncb, sb, bk, seed=11)
+        compare_cross(E, (q, cp, croot[None, :], st, nb), 0.4, max_blocks=sb,
+                      block_q=bq, block_k=bk)
+    for T, bq, ncb in ((2, 32, 2), (3, 256, 4)):
+        q, cp, croot, st, nb = _lattice(T, bq, ncb, bk, seed=T)
+        d2 = ((q[:, None, :] - cp.T[None]) ** 2).sum(-1)
+        check((d2 == np.float32(9 / 64)).any(), "no pair at d² = ε²")
+        for eps2 in EQ_BELOW:
+            counts, _, mind2 = compare_cross(
+                E, (q, cp, croot[None, :], st, nb), eps2, max_blocks=ncb,
+                block_q=bq, block_k=bk)
+            hit = d2 <= np.float32(eps2)
+            exp = np.where(hit & (croot != INT_MAX)[None], d2, np.inf) \
+                .min(1).astype(np.float32)
+            check(int(counts.sum()) == int(hit.sum()) and
+                  np.array_equal(mind2.cpu().numpy(), exp),
+                  "boundary counts or mind2 differ from numpy")
+    T, bq = 5, 32
+    q, cp, croot, st, _ = _mk_slab(T, bq, 4, 2, bk, seed=9)
+    nblk = np.array([0, 2, 0, 1, 0], np.int32)
+    counts, k_min, k_d2 = compare_cross(E, (q, cp, croot[None, :], st, nblk),
+                                        0.4, max_blocks=2, block_q=bq,
+                                        block_k=bk)
+    rows = E.torch.as_tensor(np.repeat(nblk == 0, bq), device=E.dev)
+    check(bool((counts[rows] == 0).all()) and
+          bool((k_min[rows] == INT_MAX).all()) and
+          bool(E.torch.isposinf(k_d2[rows]).all()),
+          "nblk = 0 tiles must give 0, INT32_MAX and +inf")
+    args, kw, max_nblk = road["cross"]
+    compare_cross(E, args, road["eps2"], **kw)
+    log(f"  cross_sweep: shape sweep, d² = ε² and the float below, nblk = 0, "
+        f"roadnet2d assign of {ASSIGN_Q} fresh points, {SUBSET} of its "
+        f"query tiles (max nblk {max_nblk}): counts, minroot and mind2 "
+        "bit-identical")
+
+
+class CallRecorder:
+    """Keeps the arguments of every call of ``module.attr`` (references,
+    no copies and no launches of its own) while active."""
+
+    def __init__(self, module, attr: str):
+        self.module, self.attr, self.calls = module, attr, []
+        self.real = getattr(module, attr)
+
+    def __enter__(self):
+        def record(*args, **kw):
+            self.calls.append((args, kw))
+            return self.real(*args, **kw)
+        setattr(self.module, self.attr, record)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.attr, self.real)
+
+
+def fresh(E, name, n_corpus, m, seed):
+    """``m`` fresh points of the world of the corpus ``synth.load(name,
+    n_corpus, seed=0)``: the same road graph (or layer sheets), other
+    samples."""
+    return E.repro_torch.synth.load(name, m, seed=seed, structure_seed=0,
+                                    structure_n=n_corpus)
+
+
+def tile_subset(E, args, kw, seed):
+    """``SUBSET`` seeded query tiles of a recorded slab-sweep call (the
+    widest among them), as (q, cands, croot, starts_blk, nblk)."""
+    q, cp, croot, st, nb = args[:5]
+    bq = kw["block_q"]
+    T = st.shape[0]
+    nb_np = nb.cpu().numpy()
+    widest = int(nb_np.argmax())
+    others = np.delete(np.arange(T), widest)
+    rng = np.random.default_rng(seed)
+    tiles = np.sort(np.append(rng.choice(others, min(SUBSET - 1, len(others)),
+                                         replace=False), widest))
+    idx = E.torch.as_tensor(tiles, device=q.device)
+    return (q.view(T, bq, 3)[idx].reshape(-1, 3).contiguous(), cp, croot,
+            st[idx].contiguous(), nb[idx].contiguous()), int(nb_np.max())
+
+
 def road_layouts(E):
     """Seeded subsets of the full-size roadnet2d layouts, as kernel inputs:
     64 grid tiles (the widest among them), 64 frontier slots, 64 query
@@ -415,6 +538,15 @@ def road_layouts(E):
                                                       root, 2048))
         if i in pick]
     road["chunk"], road["window"] = road["gathered_args"][0][2].shape
+    # the cross_sweep call of an assign of fresh points at full size
+    snap = E.serve.build_snapshot(pts, eps, FULL[0][3])
+    with CallRecorder(E.cross, "cross_sweep") as rec:
+        E.serve.assign(snap, fresh(E, name, n, ASSIGN_Q, seed=1))
+    args, kw = rec.calls[0]
+    sub, max_nblk = tile_subset(E, args, kw, seed=0)
+    road["cross"] = (sub, dict(max_blocks=kw["max_blocks"],
+                               block_q=kw["block_q"],
+                               block_k=kw["block_k"]), max_nblk)
     return road
 
 
@@ -424,6 +556,7 @@ def phase_parity(E):
     parity_frontier(E, road)
     parity_pairwise(E, road)
     parity_gathered(E, road)
+    parity_cross(E, road)
 
 
 # --------------------------------------------------------------------------
@@ -455,6 +588,7 @@ def assert_same_result(E, a, b, what: str, rounds: bool = True) -> None:
 
 
 def phase_reduced(E):
+    phase_reduced_serve(E)
     for name, _, eps, min_pts in FULL:
         pts = E.repro_torch.synth.load(name, REDUCED_N, seed=0)
         first = None
@@ -494,6 +628,48 @@ def phase_reduced(E):
             f"{float(lists['grid'][1].float().mean()):.2f}")
 
 
+def serve_run(E, pts, q, chunks, eps, min_pts, device=None):
+    """The serve path at reduced size on one device: build_snapshot,
+    assign, ingests, a forced compaction. Returns host arrays."""
+    E.snapshot._SLAB_CACHE.clear()   # both devices start from the plan
+    snap = E.serve.build_snapshot(pts, eps, min_pts, device=device)
+    a = E.serve.assign(snap, q)
+    sess = E.serve.ServeSession(snap, max_delta_frac=np.inf)
+    online = [sess.ingest(c).labels for c in chunks]
+    sess.compact(force=True)
+    s = sess.snapshot
+    return dict(labels=a.labels, counts=a.counts, dist=a.dist,
+                online=np.concatenate(online), snap_labels=s.labels.cpu(),
+                snap_core=s.core.cpu(), snap_counts=s.counts.cpu(),
+                snap_croot=s.croot_sorted.cpu())
+
+
+def phase_reduced_serve(E):
+    name, _, eps, min_pts = FULL[0]
+    n_q, n_chunks, m = REDUCED_SERVE
+    pts = E.repro_torch.synth.load(name, REDUCED_N, seed=0)
+    q = fresh(E, name, REDUCED_N, n_q, seed=1)
+    new = fresh(E, name, REDUCED_N, n_chunks * m, seed=2)
+    chunks = [new[i:i + m] for i in range(0, len(new), m)]
+    t0 = time.perf_counter()
+    cpu = serve_run(E, pts, q, chunks, eps, min_pts, device="cpu")
+    t1 = time.perf_counter()
+    gpu = serve_run(E, pts, q, chunks, eps, min_pts)
+    E.torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    for k, a in cpu.items():
+        b = gpu[k]
+        ok = E.torch.equal(a, b) if isinstance(a, E.torch.Tensor) \
+            else a.dtype == b.dtype and np.array_equal(a, b)
+        check(ok, f"{name} n={REDUCED_N} serve: {k} differ cpu vs cuda")
+    log(f"  {name} n={REDUCED_N} serve: assign of {n_q} fresh points "
+        f"(labels, counts, dist), {n_chunks} ingests of {m} (online "
+        f"labels), forced compaction (labels, core, counts, payload): "
+        f"bit-identical; {int((cpu['labels'] >= 0).sum())} assigned to a "
+        f"cluster, {int(np.isfinite(cpu['dist']).sum())} finite dist; "
+        f"cpu {t1 - t0:.2f} s, cuda {t2 - t1:.2f} s")
+
+
 def brute_counts(E, pts, idx, eps2):
     """ε-neighbour counts of pts[idx] over the whole corpus, on the card,
     with the same unfused d² as the kernels."""
@@ -507,24 +683,140 @@ def brute_counts(E, pts, idx, eps2):
     return out
 
 
-class FrontierRecorder:
-    """Keeps the arguments of every frontier_sweep call (references, no
-    copies and no launches of its own), to count the live pair tests of
+def brute_predict(E, pts, labels, core, q, eps2):
+    """DBSCAN predict of queries ``q`` over the whole corpus on the card,
+    with the kernels' unfused d²: min label over the core points within ε
+    (-1 when none), ε-neighbour counts, distance to the nearest of those
+    core points (+inf when none)."""
+    t = E.torch
+    eps2_t = t.tensor(float(np.float32(eps2)), device=E.dev)
+    lab = t.full((len(q),), INT_MAX, dtype=t.int32, device=E.dev)
+    cnt = t.zeros(len(q), dtype=t.int64, device=E.dev)
+    md = t.full((len(q),), float("inf"), device=E.dev)
+    for s in range(0, pts.shape[0], 32768):
+        d2 = E.ref._dist2(q[:, None, :], pts[None, s:s + 32768, :])
+        hit = d2 <= eps2_t
+        ch = hit & core[None, s:s + 32768]
+        cnt += hit.sum(1)
+        lab = t.minimum(lab, t.where(ch, labels[None, s:s + 32768],
+                                     INT_MAX).amin(1))
+        md = t.minimum(md, t.where(ch, d2, float("inf")).amin(1))
+    return (t.where(lab != INT_MAX, lab, -1).cpu().numpy(),
+            cnt.to(t.int32).cpu().numpy(),
+            np.sqrt(md.cpu().numpy(), dtype=np.float32))
+
+
+def same_answer(a, b) -> bool:
+    return all(np.array_equal(getattr(a, f), getattr(b, f))
+               for f in ("labels", "counts", "dist"))
+
+
+def serve_full(E, name, n, eps, min_pts, pts_np):
+    """The serve path at full size: build_snapshot, assign of ASSIGN_Q
+    fresh points, ingests of INGEST_CHUNK until the session compacts, an
+    assign on the compacted snapshot, save and load, the same assign on
+    the loaded one. Launch counts cover exactly this; the checks after it
+    launch nothing that is counted."""
+    t = E.torch
+    q_np = fresh(E, name, n, ASSIGN_Q, seed=1)
+    new = fresh(E, name, n, DELTA_CAP, seed=2)
+    chunks = [new[i:i + INGEST_CHUNK] for i in range(0, DELTA_CAP,
+                                                     INGEST_CHUNK)]
+    E.snapshot._SLAB_CACHE.clear()
+    sched = E.serve.BucketScheduler()
+    steps, marks = {}, {}
+
+    def step(label, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        t.cuda.synchronize()
+        steps[label] = time.perf_counter() - t0
+        return out
+
+    t.cuda.synchronize()
+    E.reset_launches()
+    t_start = time.perf_counter()
+    with CallRecorder(E.cross, "cross_sweep") as rec, \
+            tempfile.TemporaryDirectory() as tmp:
+        snap = step("build_snapshot", lambda: E.serve.build_snapshot(
+            pts_np, eps, min_pts))
+        slab_plan = snap.slab
+        a = step("assign", lambda: E.serve.assign(snap, q_np,
+                                                  scheduler=sched))
+        slab_assign, regrows_assign = snap.slab, sched.regrows
+        marks["assign"] = len(rec.calls)
+        sess = E.serve.ServeSession(snap, delta_capacity=DELTA_CAP,
+                                    scheduler=sched)
+        ingest_s, n_in = [], 0
+        for c in chunks:
+            r = step("ingest", lambda: sess.ingest(c))
+            ingest_s.append(steps["ingest"])
+            n_in += len(c)
+            if r.compacted:
+                break
+        check(r.compacted, f"{name} serve: no compaction after {n_in} "
+              f"points (delta_capacity {DELTA_CAP})")
+        marks["ingest"] = len(rec.calls)
+        m = step("assign_compacted", lambda: E.serve.assign(
+            sess.snapshot, q_np, scheduler=sched))
+        step("save", lambda: E.serve.save_snapshot(sess.snapshot, tmp,
+                                                   step=1))
+        loaded = step("load", lambda: E.serve.load_snapshot(tmp))
+        m2 = step("assign_loaded", lambda: E.serve.assign(
+            loaded, q_np, scheduler=sched))
+    wall = time.perf_counter() - t_start
+    launches = E.launches()
+    check(all(launches[k] > 0 for k in SERVE_KERNELS) and
+          all(v == 0 for k, v in launches.items() if k not in SERVE_KERNELS),
+          f"{name} serve: launches {launches}, expected exactly "
+          f"{SERVE_KERNELS}")
+    # checks, outside the counted run
+    pts = t.as_tensor(pts_np, device=E.dev)
+    k = PREDICT_CHECK
+    lab, cnt, dist = brute_predict(E, pts, snap.labels, snap.core,
+                                   t.as_tensor(q_np[:k], device=E.dev),
+                                   float(eps) ** 2)
+    check(np.array_equal(a.labels[:k], lab) and
+          np.array_equal(a.counts[:k], cnt) and
+          np.array_equal(a.dist[:k], dist),
+          f"{name} serve: assign differs from brute-force predict at "
+          f"{int((a.labels[:k] != lab).sum())} labels, "
+          f"{int((a.counts[:k] != cnt).sum())} counts, "
+          f"{int((a.dist[:k] != dist).sum())} dist of {k}")
+    concat = np.concatenate([pts_np, new[:n_in]])
+    full = E.repro_torch.dbscan(concat, eps, min_pts)
+    s = sess.snapshot
+    for f in ("labels", "core", "counts"):
+        check(t.equal(getattr(s, f), getattr(full, f)),
+              f"{name} serve: compacted {f} != dbscan on the concatenation")
+    check(same_answer(m, m2), f"{name} serve: assign after save/load "
+          "differs")
+    log(f"  {name} n={n} serve: launches {launches}")
+    log(f"    steps s: build_snapshot {steps['build_snapshot']:.3f}, assign "
+        f"{steps['assign']:.3f} (bucket {a.bucket}, slab {slab_plan} -> "
+        f"{slab_assign}, regrows {regrows_assign}), ingests "
+        f"{[round(x, 4) for x in ingest_s]} (chunks of {INGEST_CHUNK}; the "
+        f"last compacts {n + n_in} points), assign on the compacted "
+        f"snapshot {steps['assign_compacted']:.3f}, save {steps['save']:.3f}"
+        f", load {steps['load']:.3f}, assign on the loaded one "
+        f"{steps['assign_loaded']:.3f}; total {wall:.3f}")
+    log(f"    assign: {int((a.labels >= 0).sum())} of {ASSIGN_Q} joined a "
+        f"cluster; {k} held against brute-force predict (labels, counts, "
+        f"dist): identical; compacted labels, core, counts = dbscan on the "
+        f"concatenation; save/load: identical answers; slab regrows in all "
+        f"{sched.regrows}, program keys {sched.recompiles}")
+    return dict(launches=launches, rec=rec, marks=marks, steps=steps,
+                ingest_s=ingest_s, wall=wall, eps2=float(eps) ** 2,
+                bucket=a.bucket, slab=(slab_plan, slab_assign),
+                regrows=sched.regrows)
+
+
+class FrontierRecorder(CallRecorder):
+    """Records every frontier_sweep call, to count the live pair tests of
     each round and to time the kernel on the main path's own inputs."""
 
     def __init__(self, E):
-        self.E, self.calls = E, []
-        self.real = E.frontier.frontier_sweep
-
-    def __enter__(self):
-        def record(*args, **kw):
-            self.calls.append((args, kw))
-            return self.real(*args, **kw)
-        self.E.frontier.frontier_sweep = record
-        return self
-
-    def __exit__(self, *exc):
-        self.E.frontier.frontier_sweep = self.real
+        super().__init__(E.frontier, "frontier_sweep")
 
     def live_pairs(self):
         """Per call: (live tiles, pair tests of the live tiles)."""
@@ -639,6 +931,7 @@ def phase_full(E):
                                     eps2=float(eps) ** 2)
         log(f"    {name}: labels, core and counts identical across "
             f"{list(PATHS)}; invariants and 4096 brute-force counts: ok")
+        runs[name]["serve"] = serve_full(E, name, n, eps, min_pts, pts_np)
     return runs
 
 
@@ -823,6 +1116,50 @@ def times_gathered(E, name, run, grid_run):
                grid_hash_sweep_ms=sweep_ms, csr_sweep_ms=csr_ms)
 
 
+def slab_pairs(nblk, block_k: int, block_q: int) -> int:
+    """Pair tests of one slab sweep: every live block of every tile."""
+    return int(nblk.sum()) * block_k * block_q
+
+
+def times_cross(E, name, run):
+    """cross_sweep on the serve path's own inputs: the assign of ASSIGN_Q
+    fresh points, and the largest cross query of an ingest (the delta
+    against the corpus); plain on SUBSET query tiles of the assign."""
+    rec, marks = run["rec"], run["marks"]
+    (args, kw) = rec.calls[0]
+    ingest_calls = rec.calls[marks["assign"]:marks["ingest"]]
+    i_args, i_kw = max(ingest_calls, key=lambda c: c[0][0].shape[0])
+    out = {}
+    for tag, (a, k) in (("assign", (args, kw)), ("ingest", (i_args, i_kw))):
+        q, cp, croot, st, nb, eps2 = a
+        T, bq, nc = st.shape[0], k["block_q"], cp.shape[1]
+        ms = cuda_ms(E, lambda: E.cross.cross_sweep(*a, **k))
+        nbytes = T * bq * 12 + nc * 16 + T * 8 + T * bq * 12
+        out[tag] = dict(ms=ms, pairs=slab_pairs(nb, k["block_k"], bq),
+                        nbytes=nbytes, queries=T * bq,
+                        max_nblk=int(nb.max()), tiles=T)
+    sub, _ = tile_subset(E, args, kw, seed=1)
+    pkw = dict(max_blocks=kw["max_blocks"], block_k=kw["block_k"])
+    plain_ms, p_out = timed_once(
+        E, lambda: E.cross.cross_sweep_plain(*sub, args[5], **pkw))
+    k_sub_ms, k_out = timed_once(
+        E, lambda: E.cross.cross_sweep(*sub, args[5], block_q=kw["block_q"],
+                                       **pkw))
+    d2_err = float((k_out[2] - p_out[2]).abs().nan_to_num(0.0).max())
+    check(E.torch.equal(k_out[2], p_out[2]), f"cross_sweep mind2: kernel != "
+          f"plain (max abs err {d2_err})")
+    err = max(max_err(k_out[:2], p_out[:2]), d2_err)
+    a, i = out["assign"], out["ingest"]
+    return row("cross_sweep", run["launches"]["cross_sweep"], a["ms"],
+               plain_ms, bound(a["pairs"], a["nbytes"]), err,
+               plain_shapes=f"{SUBSET} query tiles of the assign",
+               ms_on_plain_shapes=k_sub_ms, pair_tests=a["pairs"],
+               queries=a["queries"], max_nblk=a["max_nblk"],
+               ingest_ms=i["ms"], ingest_queries=i["queries"],
+               ingest_pair_tests=i["pairs"],
+               ingest_bound_ms=bound(i["pairs"], i["nbytes"])[0])
+
+
 def phase_times(E, runs):
     E.runs = runs
     per = {k: {} for k in KERNELS}
@@ -832,7 +1169,13 @@ def phase_times(E, runs):
         per_ds["pairwise_sweep"] = times_pairwise(E, name, r["brute"])
         per_ds["gathered_sweep"] = times_gathered(E, name, r["grid-hash"],
                                                   r["grid/device"])
+        per_ds["cross_sweep"] = times_cross(E, name, r["serve"])
         for kname, d in per_ds.items():
+            # launches: every counted path run of this dataset
+            by_path = {p: pr["launches"][kname] for p, pr in r.items()
+                       if pr["launches"][kname]}
+            d["launches_by_path"] = by_path
+            d["launches"] = sum(by_path.values())
             per[kname][name] = d
             log(f"  {kname} @ {name}: {d['ms']:.3f} ms (bound "
                 f"{d['bound_ms']:.3f} ms by {d['bound_by']}, "
@@ -849,13 +1192,20 @@ def phase_times(E, runs):
             f" ms ({g['chunks_per_sweep']} chunks, kernel "
             f"{g['kernel_ms_per_sweep']:.3f} ms of it), CSR grid "
             f"{g['csr_sweep_ms']:.3f} ms")
+        c = per_ds["cross_sweep"]
+        log(f"    cross_sweep @ {name}: assign of {c['queries']} queries "
+            f"{c['ms']:.3f} ms ({c['pair_tests']:.3e} pair tests, max nblk "
+            f"{c['max_nblk']}); ingest cross query of {c['ingest_queries']} "
+            f"{c['ingest_ms']:.3f} ms (bound {c['ingest_bound_ms']:.3f} ms, "
+            f"{c['ingest_pair_tests']:.3e} pair tests); launches by path "
+            f"{c['launches_by_path']}")
     return per
 
 
 def kernels_line(per) -> dict:
     """The kernels JSON: per-call numbers at the roadnet2d full-size shapes,
-    launches summed over both full-size runs of the kernel's paths, every
-    dataset under ``per_dataset``."""
+    launches summed over every full-size path run on both datasets (per
+    path under ``per_dataset``), every dataset under ``per_dataset``."""
     out = []
     for kname, rows in per.items():
         head = rows[FULL[0][0]]

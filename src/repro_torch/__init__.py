@@ -9,6 +9,7 @@ from .core.dbscan import DBSCANResult, dbscan
 from .core.engines import make_engine
 from .core.neighbors import find_neighbors
 from .data import synth
+from . import serve
 
 __all__ = ["DBSCANResult", "dbscan", "find_neighbors", "make_engine",
-           "synth"]
+           "serve", "synth"]

@@ -13,6 +13,9 @@ the fields of the :class:`Engine` it builds:
                        (skips the payload plane the stage discards);
   * ``neighbors``    — optional neighbor-*list* capability backing
                        ``find_neighbors``;
+  * ``query``        — optional cross-corpus queries against the frozen
+                       layout (fresh points, not corpus members): the
+                       serving tier's ``assign`` and ingest;
   * ``sweep_frontier`` — optional frontier-compacted stage-2 rounds: a
                        :class:`FrontierPlan` that lets
                        ``dbscan(hook_loop="frontier")`` re-sweep only the
@@ -87,6 +90,9 @@ class Engine(NamedTuple):
     sweep_frontier: FrontierPlan | None = None  # frontier-compacted stage-2
     #                                  rounds; presence opts dbscan's
     #                                  hook_loop="frontier" in
+    query: Callable | None = None    # (state, q, nq, croot_sorted, *,
+    #                                  slab=None, block_q=256) -> (counts,
+    #                                  minroot, mind2, overflow)
 
 
 class EngineSpec(NamedTuple):

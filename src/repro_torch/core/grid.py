@@ -213,8 +213,11 @@ def csr_cells(points: torch.Tensor, side: float, origin: tuple, dims: int,
     # both constants rounded once to the points' f32, as the reference does
     inv = torch.tensor(1.0 / side, dtype=points.dtype, device=points.device)
     org = torch.tensor(origin, dtype=points.dtype, device=points.device)
-    c = torch.floor((points - org) * inv).to(torch.int32)
-    c = torch.clamp(c, 0, (1 << bits) - 3)
+    # clamped before the cast: a coordinate far outside the domain (a
+    # serving query, a +BIG padding row) saturates instead of overflowing
+    # int32, as the reference's saturating cast does
+    c = torch.clamp(torch.floor((points - org) * inv), 0,
+                    (1 << bits) - 3).to(torch.int32)
     if dims == 2:
         c[:, 2] = 0
     return c

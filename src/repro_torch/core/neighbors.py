@@ -24,7 +24,10 @@ Engines (registered in ``engines``; one table, no ``if engine ==`` chains):
     per sweep. O(n²) work.
 
 Every engine also backs ``find_neighbors`` (neighbor *lists*) through its
-``neighbors`` capability; those lists are plain tensor code.
+``neighbors`` capability; those lists are plain tensor code. The ``grid``
+engine alone answers cross-corpus queries (``query``, the ``cross_sweep``
+kernel) against its frozen layout: the serving tier's ``assign`` and
+ingest.
 """
 from __future__ import annotations
 
@@ -36,6 +39,7 @@ import numpy as np
 import torch
 
 from ..kernels import ops
+from ..kernels import ref as _kref
 from ..kernels.ref import _dist2, eps2_tensor
 from . import engines
 from . import grid as grid_mod
@@ -43,6 +47,14 @@ from .engines import Engine, make_engine  # re-export (public API)  # noqa: F401
 
 INT_MAX = ops.INT_MAX
 BIG = grid_mod.BIG
+
+# Bound on every overflow → double-the-slab-and-retry loop (serving assign
+# and ingest): a slab doubles at most this many times before the caller
+# raises a CapacityError naming the final capacity. log2(n_cand / slab)
+# doublings always suffice; the cap makes a pathological query
+# distribution (or a fault-injected overflow flag) end in a diagnosable
+# error rather than an unbounded retry loop.
+MAX_SLAB_REGROW = 8
 
 
 class GridState(NamedTuple):
@@ -253,6 +265,60 @@ def _csr_frontier_fns(spec: grid_mod.CSRGridSpec, eps2: float):
 
 
 @functools.lru_cache(maxsize=64)
+def _csr_cross_query_fn(spec: grid_mod.CSRGridSpec, eps2: float, slab: int,
+                        block_q: int):
+    """Cross-corpus query over a frozen CSR layout: the function behind the
+    ``query`` capability and the serving tier's ``assign``.
+
+    Quantizes fresh queries with the *corpus* plan, sorts them stably by
+    Morton code so tiles share window cells, bisects each query's 9/27
+    window cells against the corpus's sorted codes, reduces them to
+    per-tile slabs, and runs the ``cross_sweep`` kernel; results go back to
+    request order. ``q`` is a padded batch (a bucket of ``block_q``-row
+    tiles) and ``nq`` its live count: padded rows sort to the end, and
+    their lanes drop out of the tile windows. Returns counts, minroot,
+    mind2 (each (Qp,)) and ``overflow``, a () bool tensor: a tile's window
+    outgrew ``slab`` (the caller regrows).
+    """
+    n_cand = spec.n_cand
+    eff_slab = min(slab, n_cand)  # slab == n_cand covers any window
+
+    def query(codes, cands, croot_sorted, q, nq: int):
+        Qp = q.shape[0]
+        n = codes.shape[0]
+        dev = q.device
+        valid = torch.arange(Qp, device=dev) < nq
+        qcells = grid_mod.csr_cells(q, spec.side, spec.origin, spec.dims,
+                                    spec.bits)
+        qcodes = _kref.morton_encode_ref(qcells, dims=spec.dims)
+        # stable sort by code, padding keyed to the end of the batch
+        qorder = torch.argsort(torch.where(valid, qcodes, INT_MAX),
+                               stable=True)
+        valid_s = valid[qorder]
+        lo, hi = grid_mod._csr_window_bounds(codes, qcells[qorder],
+                                             spec.dims, spec.bits)
+        # dead lanes drop out of the tile min/max (the tile_slabs contract)
+        lo = torch.where(valid_s, lo, n)
+        hi = torch.where(valid_s, hi, 0)
+        starts, nblk, overflow = grid_mod.tile_slabs(
+            lo, hi, Qp, n_tiles=Qp // block_q, chunk=block_q,
+            block_k=spec.block_k, slab=eff_slab, n_cand=n_cand)
+        counts_s, minroot_s, mind2_s = ops.cross_sweep(
+            q[qorder], cands, croot_sorted, starts, nblk, eps2,
+            slab=eff_slab, block_q=block_q, block_k=spec.block_k)
+        counts = torch.zeros((Qp,), dtype=torch.int32, device=dev)
+        counts[qorder] = counts_s
+        minroot = torch.full((Qp,), INT_MAX, dtype=torch.int32, device=dev)
+        minroot[qorder] = minroot_s
+        mind2 = torch.full((Qp,), float("inf"), dtype=torch.float32,
+                           device=dev)
+        mind2[qorder] = mind2_s
+        return counts, minroot, mind2, overflow
+
+    return query
+
+
+@functools.lru_cache(maxsize=64)
 def _csr_neighbors_fn(spec: grid_mod.CSRGridSpec, eps2: float):
     """Neighbor lists from the CSR engine's per-tile contiguous slabs."""
     n, slab, bk, chunk = spec.n, spec.slab, spec.block_k, spec.chunk
@@ -341,10 +407,20 @@ def _build_csr(points, eps, *, chunk=2048, dims=None, spec=None):
             f"(slab={spec.slab}) — the spec was planned for different "
             "data; re-plan with plan_csr_grid on this dataset")
     fn, fn_sorted, fn_counts = _csr_sweep_fns(spec, eps2)
+
+    def query(state, q, nq, croot_sorted, *, slab=None, block_q=256):
+        """Cross-corpus queries against this engine's frozen layout: q
+        (Qp, 3) padded queries (Qp a multiple of block_q), nq the live
+        count, croot_sorted (n_cand,) payload in sorted layout."""
+        fn_q = _csr_cross_query_fn(spec, eps2,
+                                   spec.slab if slab is None else slab,
+                                   block_q)
+        return fn_q(state.codes, state.cands, croot_sorted, q, nq)
+
     return Engine("grid", g, fn, points.device, meta=spec,
                   sweep_sorted=fn_sorted, order=g.order,
                   timings={"plan_s": plan_s}, sweep_counts=fn_counts,
-                  neighbors=_csr_neighbors_fn(spec, eps2),
+                  neighbors=_csr_neighbors_fn(spec, eps2), query=query,
                   sweep_frontier=_csr_frontier_fns(spec, eps2))
 
 
@@ -373,7 +449,7 @@ engines.register_engine(
 engines.register_engine(
     "grid", _build_csr,
     doc="cell-sorted CSR ε-grid; sorted-layout fast path (the default)",
-    capabilities=("neighbors", "sweep_sorted", "sweep_counts",
+    capabilities=("neighbors", "sweep_sorted", "query", "sweep_counts",
                   "sweep_frontier"))
 engines.register_engine(
     "grid-hash", _build_grid_hash,

@@ -1,11 +1,13 @@
 // Slab ε-sweeps for Hopper (sm_90a): the inner loops of the grid engine
-// (cell-sorted CSR slabs), of its frontier round driver, and of the brute
-// engine, all one staged block-walk body.
+// (cell-sorted CSR slabs), of its frontier round driver, of the serving
+// tier's cross-corpus queries, and of the brute engine, all one staged
+// block-walk body.
 //
 // Replaces the Pallas TPU kernels
 //   src/repro/kernels/csr_sweep.py      csr_sweep        (def :146)  -> csr_sweep_kernel<true>
 //   src/repro/kernels/csr_sweep.py      csr_sweep_counts (def :102)  -> csr_sweep_kernel<false>
 //   src/repro/kernels/frontier_sweep.py frontier_sweep   (def :65)   -> frontier_sweep_kernel
+//   src/repro/kernels/cross_sweep.py    cross_sweep      (def :94)   -> cross_sweep_kernel
 //   src/repro/kernels/pairwise_sweep.py pairwise_sweep   (def :68)   -> pairwise_sweep_kernel
 //
 // Contracts (identical to the reference):
@@ -20,6 +22,12 @@
 //     csr_sweep minroot of tile active[i] when i < n_active, INT32_MAX rows
 //     otherwise. n_active is read from device memory, so the caller never
 //     syncs the host to learn it. No counts.
+//   cross_sweep: the csr_sweep slab walk for fresh queries against a
+//     frozen corpus whose croot holds the cluster label of core points
+//     (INT32_MAX elsewhere). A third output, mind2, is the min d2 over the
+//     hits with croot != INT32_MAX (+inf when none), taken over the very
+//     d2 values the hit test compared, so it is bit-identical to the plain
+//     version's. A tile with nblk = 0 gives 0 / INT32_MAX / +inf.
 //   pairwise_sweep: query tile t sweeps every candidate block of the
 //     (3, nc) array; counts and min croot over hits.
 // d2 is sweep_common.cuh's dist2_rn, compared with <= eps2 (eps2 rounded
@@ -39,12 +47,15 @@
 //   * each candidate block is staged once in shared memory as float4
 //     (x, y, z, croot bits), so the inner loop issues one broadcast LDS.128
 //     per pair and no bank conflicts;
-//   * counts and min-root live in registers and are written once;
+//   * counts, min-root and (cross_sweep) min-d2 live in registers and are
+//     written once;
 //   * a parked frontier slot writes its INT32_MAX rows and returns before
 //     any load: its cost is one block launch, not a slab walk.
 // Left for later work: several queries per thread, a persistent grid that
 // balances the skewed nblk across SMs (and a frontier grid sized by the
 // live count), and cp.async/TMA double buffering.
+
+#include <cmath>
 
 #include "sweep_common.cuh"
 
@@ -54,11 +65,12 @@ using repro::kIntMax;
 
 // Walks candidate blocks sb .. sb + nb - 1 for one query per thread. Every
 // thread of the block must call it with the same sb and nb (barriers).
-template <bool kCount, bool kPayload>
+// kMinD2 also keeps the min d2 over hits with a payload below INT32_MAX.
+template <bool kCount, bool kPayload, bool kMinD2 = false>
 __device__ __forceinline__ void walk_blocks(
     float qx, float qy, float qz, const float* __restrict__ cands,
     const int* __restrict__ croot, int nc, int sb, int nb, int block_k,
-    float eps2, float4* stage, int& cnt, int& mr) {
+    float eps2, float4* stage, int& cnt, int& mr, float* md = nullptr) {
   for (int b = 0; b < nb; ++b) {
     const int64_t off = static_cast<int64_t>(sb + b) * block_k;
     __syncthreads();  // every thread is done with the previous block
@@ -72,9 +84,13 @@ __device__ __forceinline__ void walk_blocks(
 #pragma unroll 8
     for (int i = 0; i < block_k; ++i) {
       const float4 c = stage[i];
-      const bool hit = repro::dist2_rn(qx, qy, qz, c.x, c.y, c.z) <= eps2;
+      // one d2 per pair, for the hit test and the min alike
+      const float d2 = repro::dist2_rn(qx, qy, qz, c.x, c.y, c.z);
+      const bool hit = d2 <= eps2;
       if (kCount) cnt += hit;
       if (kPayload && hit) mr = min(mr, __float_as_int(c.w));
+      if (kMinD2 && hit && __float_as_int(c.w) != kIntMax)
+        *md = fminf(*md, d2);
     }
   }
 }
@@ -141,6 +157,31 @@ __global__ void frontier_sweep_kernel(const float* __restrict__ queries,
                            queries[row * 3 + 2], cands, croot, nc, sb, nb,
                            block_k, eps2, stage, cnt, mr);
   minroot[out] = mr;
+}
+
+__global__ void cross_sweep_kernel(const float* __restrict__ queries,
+                                   const float* __restrict__ cands,
+                                   const int* __restrict__ croot,
+                                   const int* __restrict__ starts_blk,
+                                   const int* __restrict__ nblk, float eps2,
+                                   int nc, int max_blocks, int block_k,
+                                   int* __restrict__ counts,
+                                   int* __restrict__ minroot,
+                                   float* __restrict__ mind2) {
+  extern __shared__ float4 stage[];
+  const int t = blockIdx.x;
+  const int64_t row = static_cast<int64_t>(t) * blockDim.x + threadIdx.x;
+  int sb, nb;
+  slab_of(starts_blk, nblk, t, nc, max_blocks, block_k, sb, nb);
+  int cnt = 0;
+  int mr = kIntMax;
+  float md = INFINITY;
+  walk_blocks<true, true, true>(queries[row * 3 + 0], queries[row * 3 + 1],
+                                queries[row * 3 + 2], cands, croot, nc, sb,
+                                nb, block_k, eps2, stage, cnt, mr, &md);
+  counts[row] = cnt;
+  minroot[row] = mr;
+  mind2[row] = md;
 }
 
 __global__ void pairwise_sweep_kernel(const float* __restrict__ queries,
@@ -217,6 +258,22 @@ int frontier_sweep_launch(int device, const float* queries,
                           static_cast<cudaStream_t>(stream)>>>(
       queries, cands, croot, starts_blk, nblk, active, n_active, eps2,
       n_tiles, nc, max_blocks, block_k, minroot);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int cross_sweep_launch(int device, const float* queries, const float* cands,
+                       const int* croot, const int* starts_blk,
+                       const int* nblk, float eps2, int n_tiles, int block_q,
+                       int nc, int max_blocks, int block_k, int* counts,
+                       int* minroot, float* mind2, void* stream) {
+  if (n_tiles == 0) return 0;
+  const size_t smem = static_cast<size_t>(block_k) * sizeof(float4);
+  cudaError_t err = repro::prepare(device, cross_sweep_kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cross_sweep_kernel<<<n_tiles, block_q, smem,
+                       static_cast<cudaStream_t>(stream)>>>(
+      queries, cands, croot, starts_blk, nblk, eps2, nc, max_blocks, block_k,
+      counts, minroot, mind2);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -82,13 +82,18 @@ def _check(queries, cands_planar, croot, starts_blk, nblk, *, max_blocks,
 
 
 def _sweep_plain(queries, cands_planar, croot, starts_blk, nblk, eps2, *,
-                 max_blocks, block_k):
+                 max_blocks, block_k, with_mind2=False):
+    """counts and minroot of the slab sweep; with ``with_mind2`` also the
+    min d² over the hits whose payload is not INT32_MAX (+inf when none),
+    a min over the very d² values the hit test compared."""
     T = starts_blk.shape[0]
     dev = queries.device
     q = queries.reshape(T, -1, 3)
     eps2_t = eps2_tensor(eps2, dev)
     counts = torch.zeros(q.shape[:2], dtype=torch.int32, device=dev)
     minroot = torch.full(q.shape[:2], INT_MAX, dtype=torch.int32, device=dev)
+    mind2 = torch.full(q.shape[:2], float("inf"), dtype=torch.float32,
+                       device=dev)
     nb = torch.clamp(nblk, 0, max_blocks)
     n_steps = int(nb.max()) if T else 0   # steps past every tile's nblk hit nothing
     last = cands_planar.shape[1] - 1
@@ -104,6 +109,12 @@ def _sweep_plain(queries, cands_planar, croot, starts_blk, nblk, eps2, *,
         if croot is not None:
             r = torch.where(hit, croot[idx][:, None, :], INT_MAX)
             minroot = torch.minimum(minroot, r.amin(dim=2))
+        if with_mind2:
+            core_hit = hit & (croot[idx] != INT_MAX)[:, None, :]
+            mind2 = torch.minimum(
+                mind2, torch.where(core_hit, d2, float("inf")).amin(dim=2))
+    if with_mind2:
+        return counts.reshape(-1), minroot.reshape(-1), mind2.reshape(-1)
     return counts.reshape(-1), minroot.reshape(-1)
 
 

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from . import cross_sweep as _cross
 from . import csr_sweep as _csr
 from . import frontier_sweep as _frontier
 from . import gathered_sweep as _gathered
@@ -105,6 +106,38 @@ def frontier_sweep(queries, cands_planar, croot, starts, nblk, active,
         q, cands_planar, croot.to(torch.int32), starts_blk, nblk,
         active.to(torch.int32), n_active, eps2, max_blocks=max_blocks,
         block_q=block_q, block_k=block_k)
+
+
+def cross_sweep(queries, cands_planar, croot, starts, nblk, eps2, *,
+                slab: int, block_q: int = 256, block_k: int = 512):
+    """Cross-corpus CSR slab ε-sweep (serving inner loop).
+
+    The asymmetric sibling of :func:`csr_sweep`: fresh query points against
+    a frozen corpus in cell-sorted layout. The payload holds cluster
+    *labels* of core corpus points, so ``minroot`` is the DBSCAN-predict
+    answer; ``mind2`` (min d² over the deciding core hits, +inf if none)
+    rides along.
+
+    queries      (T·block_q, 3) — Morton-sorted query tiles; +BIG padding
+                 rows never hit
+    cands_planar (3, nc)        — cell-sorted frozen corpus, nc a multiple
+                 of block_k, padded with +BIG
+    croot        (nc,) int32    — cluster label if core else INT32_MAX
+    starts       (T,) int32     — per-tile slab start, in *elements*,
+                 multiples of block_k, with starts + slab ≤ nc
+    nblk         (T,) int32     — per-tile live block count (≤ slab/block_k)
+    slab         per-tile slab capacity (elements, a multiple of block_k)
+
+    Returns counts (T·block_q,) int32, minroot (T·block_q,) int32, mind2
+    (T·block_q,) f32, bit-identical between the kernel and the plain
+    version.
+    """
+    q, starts_blk, nblk, max_blocks = _slab_args(
+        queries, starts, nblk, slab=slab, block_q=block_q, block_k=block_k)
+    return _cross.cross_sweep(q, cands_planar,
+                              croot.to(torch.int32).reshape(1, -1),
+                              starts_blk, nblk, eps2, max_blocks=max_blocks,
+                              block_q=block_q, block_k=block_k)
 
 
 def pairwise_sweep_args(queries, cands, core, root, *, block_q: int = 256,

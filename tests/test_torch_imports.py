@@ -18,11 +18,17 @@ MODULES = ["repro_torch", "repro_torch.baselines",
            "repro_torch.core.grid", "repro_torch.core.labels",
            "repro_torch.core.neighbors", "repro_torch.core.union_find",
            "repro_torch.data", "repro_torch.data.synth",
+           "repro_torch.distributed", "repro_torch.distributed.checkpoint",
            "repro_torch.kernels", "repro_torch.kernels.build",
+           "repro_torch.kernels.cross_sweep",
            "repro_torch.kernels.csr_sweep",
            "repro_torch.kernels.frontier_sweep",
            "repro_torch.kernels.gathered_sweep", "repro_torch.kernels.ops",
-           "repro_torch.kernels.pairwise_sweep", "repro_torch.kernels.ref"]
+           "repro_torch.kernels.pairwise_sweep", "repro_torch.kernels.ref",
+           "repro_torch.serve", "repro_torch.serve.assign",
+           "repro_torch.serve.faults", "repro_torch.serve.ingest",
+           "repro_torch.serve.resilience", "repro_torch.serve.scheduler",
+           "repro_torch.serve.snapshot", "repro_torch.serve.wal"]
 
 
 def test_import_loads_no_jax_and_no_repro():
@@ -35,6 +41,16 @@ def test_import_loads_no_jax_and_no_repro():
         "    repro_torch.dbscan(pts, 0.1, 2, engine=e, device='cpu')\n"
         "    repro_torch.find_neighbors(pts, 0.1, 4, engine=e, device='cpu')\n"
         "repro_torch.dbscan(pts, 0.1, 2, hook_loop='frontier', device='cpu')\n"
+        "import tempfile\n"
+        "from repro_torch import serve\n"
+        "d = tempfile.mkdtemp()\n"
+        "s = serve.ServeSession(serve.build_snapshot(pts, 0.1, 2, device='cpu'),"
+        " ckpt_dir=d + '/ck', wal=serve.WriteAheadLog(d + '/wal'))\n"
+        "s.assign([[0.0, 0.01, 0.0]])\n"
+        "s.ingest([[0.02, 0.0, 0.0]])\n"
+        "s.compact()\n"
+        "s.wal.close()\n"
+        "serve.ServeSession.recover(d + '/ck', d + '/wal', device='cpu')\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or"
         " m.startswith(('jax.', 'jaxlib', 'repro.')) or m == 'repro')\n"
         "print('BAD', bad)\n")
