@@ -6,9 +6,12 @@
 Drives the port's paths on the card and exits non-zero on any failure.
 Paths: batch DBSCAN on the grid engine with the ``device`` round driver
 (the main path) and with the ``frontier`` driver, on the ``grid-hash``
-engine and on the ``brute`` engine; and single-session serving
-(``serve``: ``build_snapshot``, ``assign``, ``ServeSession.ingest`` with
-compaction, snapshot save and load). Phases:
+engine, on the ``brute`` engine, on the wavefront BVH engine (``bvh``)
+with the ``device`` and ``frontier`` drivers, on the stack BVH engine
+(``bvh-stack``) and through the FDBSCAN baseline with its early exit
+(``fdbscan``); and single-session serving (``serve``: ``build_snapshot``,
+``assign``, ``ServeSession.ingest`` with compaction, snapshot save and
+load). Phases:
 
   1. environment: the card's name and power limit (nvidia-smi);
   2. build: every kernel source in src/repro_torch/csrc, one nvcc each,
@@ -20,14 +23,21 @@ compaction, snapshot save and load). Phases:
      contract, windows with invalid and duplicate-masked cells, and 64
      seeded tiles (chunks) of the full-size roadnet2d layouts (for
      cross_sweep, of the layout of an assign of 32,768 fresh points; its
-     float output mind2 bit-identical too);
+     float output mind2 bit-identical too); morton_encode on 2-D and 3-D
+     codes, the top and over-the-mask values, ragged n; bvh_batch_sweep on
+     the reference's ragged sweep (both prune dtypes, bf16 boxes stored
+     bf16 and widened, both payload modes, payload inputs absent without),
+     pairs at d² = ε², queries a fraction of a bf16 ulp either side of a
+     box edge, dead entries, and 64 seeded slices of the widest level of
+     the full-size roadnet2d exact traversal;
   4. whole path at n = 20,000 (roadnet2d, iono3d), every path:
      device="cpu" with the plain versions against the card with the
      kernels, bit-identical labels, core, counts, n_rounds and frontier
      histogram; ``find_neighbors`` of every engine at n = 4,000, cpu
      against cuda; serving at n = 20,000 roadnet2d (build_snapshot, assign
      of 4,096 fresh points, 4 ingests of 1,024, a forced compaction), cpu
-     against cuda: labels, counts and dist bit-identical;
+     against cuda: labels, counts and dist bit-identical; the calibrated
+     WavefrontSpec of the bvh engine equal on cpu and cuda;
   5. whole path at full size (roadnet2d 435,000 at ε = 0.02, minPts = 8;
      iono3d 1,000,000 at ε = 2.0, minPts = 16), every path: kernel launch
      counts set to 0 before and read after each run, labels, core and
@@ -39,10 +49,16 @@ compaction, snapshot save and load). Phases:
      points (4,096 of them against a brute-force predict over the whole
      corpus), 2,048-point ingests until the session compacts (labels
      identical to dbscan on the concatenation), save and load, assign
-     again (identical);
+     again (identical). The bvh paths also print the calibrated spec
+     (probes, capacity, peak), the level histogram of the exact sweep and
+     the seconds of bvh_batch_sweep inside each sweep (CUDA events);
+     fdbscan's stage-1 counts are clipped at minPts, so its counts are held
+     to min(counts, minPts);
   6. kernel times at the full-size shapes of each kernel's path (median of
      5 launches, CUDA events), beside the plain version's time and the
-     least time the card could take (bound).
+     least time the card could take (bound); morton_encode on the bvh
+     build's own input, bvh_batch_sweep at the widest level of the exact
+     sweep and summed over the sweep.
 
 Before the last line it prints one ``{"kernels": [...]}`` JSON line; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -81,7 +97,9 @@ WINDOW_SHAPES = [(1, 1), (128, 512), (130, 100), (3, 700)]
 EQ_BELOW = (9 / 64, float(np.nextafter(np.float32(9 / 64), np.float32(0))))
 SUBSET = 64      # tiles (chunks) of the full-size layouts for plain versions
 
-# dbscan options of each path, and the kernels the path must launch
+# dbscan options of each path (``early_exit``: the FDBSCAN baseline's run
+# instead of dbscan), and the kernels the path must launch
+BVH_KERNELS = ("morton_encode", "bvh_batch_sweep")
 PATHS = {
     "grid/device": (dict(engine="grid", hook_loop="device"),
                     ("csr_sweep_counts", "csr_sweep")),
@@ -89,7 +107,13 @@ PATHS = {
                       ("csr_sweep_counts", "frontier_sweep")),
     "grid-hash": (dict(engine="grid-hash"), ("gathered_sweep",)),
     "brute": (dict(engine="brute"), ("pairwise_sweep",)),
+    "bvh/device": (dict(engine="bvh", hook_loop="device"), BVH_KERNELS),
+    "bvh/frontier": (dict(engine="bvh", hook_loop="frontier"), BVH_KERNELS),
+    "bvh-stack": (dict(engine="bvh-stack"), ("morton_encode",)),
+    "fdbscan": (dict(engine="bvh-stack", early_exit=True),
+                ("morton_encode",)),
 }
+ENTRIES_PER_SLICE = 2_048   # bvh_batch_sweep parity: entries per slice
 # serving: build_snapshot (csr_sweep_counts, frontier_sweep), assign
 # (cross_sweep), ingest (cross_sweep, pairwise_sweep), compaction (a
 # build_snapshot)
@@ -113,6 +137,10 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
                        "src/repro/kernels/gathered_sweep.py:55"),
     "cross_sweep": ("src/repro_torch/csrc/csr_sweep.cu",
                     "src/repro/kernels/cross_sweep.py:94"),
+    "morton_encode": ("src/repro_torch/csrc/bvh_sweep.cu",
+                      "src/repro/kernels/morton.py:50"),
+    "bvh_batch_sweep": ("src/repro_torch/csrc/bvh_sweep.cu",
+                        "src/repro/kernels/bvh_sweep.py:79"),
 }
 
 
@@ -144,9 +172,11 @@ class Env:
 
         import repro_torch
         from repro_torch import serve
-        from repro_torch.core import neighbors
-        from repro_torch.kernels import (build, cross_sweep, csr_sweep,
-                                         frontier_sweep, gathered_sweep, ops,
+        from repro_torch.baselines import fdbscan
+        from repro_torch.core import bvh, neighbors
+        from repro_torch.kernels import (build, bvh_sweep, cross_sweep,
+                                         csr_sweep, frontier_sweep,
+                                         gathered_sweep, morton, ops,
                                          pairwise_sweep, ref)
         from repro_torch.serve import snapshot
         self.torch, self.repro_torch = torch, repro_torch
@@ -154,9 +184,10 @@ class Env:
         self.csr, self.frontier = csr_sweep, frontier_sweep
         self.pairwise, self.gathered = pairwise_sweep, gathered_sweep
         self.cross, self.serve, self.snapshot = cross_sweep, serve, snapshot
-        self.nb = neighbors
+        self.nb, self.bvh, self.fdbscan = neighbors, bvh, fdbscan
+        self.bvhk, self.morton = bvh_sweep, morton
         self.modules = (csr_sweep, frontier_sweep, pairwise_sweep,
-                        gathered_sweep, cross_sweep)
+                        gathered_sweep, cross_sweep, morton, bvh_sweep)
         self.dev = torch.device("cuda")
 
     def reset_launches(self) -> None:
@@ -167,7 +198,7 @@ class Env:
         return {k: v for m in self.modules for k, v in m.LAUNCHES.items()}
 
     def tensor(self, x):
-        return x if isinstance(x, self.torch.Tensor) \
+        return x if x is None or isinstance(x, self.torch.Tensor) \
             else self.torch.as_tensor(x, device=self.dev)
 
 
@@ -452,23 +483,265 @@ def parity_cross(E, road):
         "bit-identical")
 
 
-class CallRecorder:
-    """Keeps the arguments of every call of ``module.attr`` (references,
-    no copies and no launches of its own) while active."""
+def compare_bvh(E, args, eps2, **kw):
+    """bvh_batch_sweep against its plain version on the same tensors, all
+    three outputs bit for bit; returns the kernel's."""
+    args = [E.tensor(x) for x in args]
+    k = E.bvhk.bvh_batch_sweep(*args, eps2, **kw)
+    p = E.bvhk.bvh_batch_sweep_plain(*args, eps2, **kw)
+    for what, a, b in zip(("hit", "minroot", "push"), k, p):
+        same(E, f"bvh_batch_sweep {what}", a, b)
+    return k
 
-    def __init__(self, module, attr: str):
+
+def _bvh_entries(e, dims, seed=6, B=8):
+    """The reference's ragged shape sweep (tests/test_kernels.py)."""
+    rng = np.random.default_rng(seed)
+    q = rng.uniform(-1, 1, (e, B, dims)).astype(np.float32)
+    a = rng.uniform(-1, 1, (e, dims)).astype(np.float32)
+    b = a + rng.uniform(0, 0.5, (e, dims)).astype(np.float32)
+    leaf = (rng.uniform(size=e) < 0.5).astype(np.int32)
+    dlo = (np.minimum(a, b) - 0.25).astype(np.float32)
+    dhi = (np.maximum(a, b) + 0.25).astype(np.float32)
+    return [q, dlo, dhi, a, rng.integers(0, 9999, e).astype(np.int32),
+            rng.integers(0, 9999, e).astype(np.int32), leaf,
+            rng.integers(0, 9999, (e, B)).astype(np.int32)]
+
+
+def parity_morton(E):
+    rng = np.random.default_rng(7)
+    for dims, hi in ((2, 1 << 15), (3, 1 << 10)):
+        for n in (1, 5, 1_023, 1_000_003):
+            c = rng.integers(0, hi, (n, 3)).astype(np.int32)
+            edge = np.array([[hi - 1] * 3, [0, 0, 0], [hi, hi + 1, 3 * hi],
+                             [-1, -hi, 5], [hi - 1, 0, hi - 1]], np.int32)
+            c[:min(n, 5)] = edge[:min(n, 5)]
+            t = E.tensor(c)
+            same(E, f"morton_encode {dims}D n={n}",
+                 E.morton.morton_encode(t, dims=dims),
+                 E.morton.morton_encode_plain(t, dims=dims))
+    log("  morton_encode: 2-D and 3-D codes, n = 1, 5, 1,023, 1,000,003, "
+        "top, zero, over-the-mask and negative coordinates: bit-identical")
+
+
+def parity_bvh(E, road):
+    t = E.torch
+    for e in (1, 5, 129, 256, 300):
+        for dims in (3, 6):
+            args = _bvh_entries(e, dims)
+            for bf16 in (False, True):
+                boxes = [(args[1], args[2])]
+                if bf16:    # bf16 boxes, stored bf16 (as the engine keeps
+                    # them) and widened to f32
+                    lo = E.bvh._bf16_directed(E.tensor(args[1]), up=False)
+                    hi = E.bvh._bf16_directed(E.tensor(args[2]), up=True)
+                    boxes = [(lo, hi), (lo.float(), hi.float())]
+                for lo, hi in boxes:
+                    for payload in (False, True):
+                        a = [args[0], lo, hi, *args[3:]]
+                        if not payload:     # as the engine passes them
+                            a[5] = a[7] = None
+                        compare_bvh(E, a, 0.0625, bf16_prune=bf16,
+                                    prune_payload=payload)
+    # leaf points on the 1/8 lattice at d² ∈ {8, 9, 10}/64 of their queries
+    rng = np.random.default_rng(5)
+    e, B = 300, 8
+    q = rng.integers(-16, 17, (e, B, 3)).astype(np.float32) / 8
+    offs = np.array([(2, 2, 0), (2, 0, 2), (0, 2, 2), (3, 0, 0), (0, 0, 3),
+                     (2, 2, 1), (1, 2, 2), (3, 1, 0)], np.float32) / 8
+    pt = (q[:, 0] + offs[rng.integers(0, len(offs), e)]).astype(np.float32)
+    q[:, 1:] = q[:, :1] + rng.integers(-1, 2, (e, B - 1, 3)) / 8
+    q = q.astype(np.float32)
+    d2 = ((q - pt[:, None]) ** 2).sum(-1)
+    check((d2 == np.float32(9 / 64)).sum() > 10, "no pair at d² = ε²")
+    args = [q, pt - 1, pt + 1, pt, np.arange(e, dtype=np.int32),
+            np.zeros(e, np.int32), np.ones(e, np.int32),
+            np.zeros((e, B), np.int32)]
+    for eps2 in EQ_BELOW:
+        for bf16 in (False, True):
+            hit, _, _ = compare_bvh(E, args, eps2, bf16_prune=bf16)
+            check(int(hit.sum()) == int((d2 <= np.float32(eps2)).sum()),
+                  "boundary hits differ from a numpy count")
+    # queries a fraction of a bf16 ulp either side of a bf16 box edge
+    e = 64
+    lo = t.as_tensor(rng.uniform(-2, 2, (e, 3)).astype(np.float32)) \
+        .to(t.bfloat16).float().numpy()
+    hi = lo + np.float32(0.5)
+    ulp = np.ldexp(np.float32(1), np.frexp(lo[:, 0])[1] - 8) \
+        .astype(np.float32)
+    off = np.array([-1, -0.5, -0.25, 0, 0.25, 0.5, 1, 2], np.float32)[
+        np.arange(e) % 8]
+    q = np.repeat(((lo + hi) / 2)[:, None, :], B, axis=1).astype(np.float32)
+    q[:, :, 0] = (lo[:, 0] + off * ulp)[:, None]
+    args = [q, lo, hi, lo, np.arange(e, dtype=np.int32),
+            np.zeros(e, np.int32), np.zeros(e, np.int32),
+            np.ones((e, B), np.int32)]
+    pushes = {bf16: compare_bvh(E, args, 0.01, bf16_prune=bf16)[2]
+              .cpu().numpy().astype(bool) for bf16 in (False, True)}
+    check(np.array_equal(pushes[False], off >= 0) and
+          pushes[True].sum() > pushes[False].sum() and
+          (pushes[True] >= pushes[False]).all(),
+          "the prune one bf16 ulp from a box edge is not as expected")
+    # dead entries: box lo +BIG, hi -BIG, query -BIG, payload MAX, leaf 0
+    args = _bvh_entries(40, 3, seed=9)
+    dead = np.arange(40) % 3 == 0
+    args[0][dead], args[1][dead], args[2][dead] = -1e30, 1e30, -1e30
+    args[4][dead], args[5][dead], args[6][dead] = INT_MAX, INT_MAX, 0
+    for payload in (False, True):
+        hit, mr, push = compare_bvh(E, args, 0.0625, prune_payload=payload)
+        rows = t.as_tensor(dead, device=E.dev)
+        check(not bool(hit[rows].any()) and not bool(push[rows].any()) and
+              bool((mr[rows] == INT_MAX).all()),
+              "a dead entry hit or pushed")
+    # 64 seeded slices of the widest level of the full-size exact sweep
+    level, live, calls = road["bvh_level"]
+    kw = calls[0][1]
+    args = [None if calls[0][0][i] is None else
+            t.cat([a[i] for a, _ in calls]) for i in range(8)] + \
+        [calls[0][0][8]]
+    n_e = args[0].shape[0]
+    w = min(ENTRIES_PER_SLICE, n_e)
+    starts = np.sort(np.random.default_rng(0).choice(
+        n_e - w + 1, min(SUBSET, n_e - w + 1), replace=False))
+    idx = t.as_tensor((starts[:, None] + np.arange(w)[None]).reshape(-1),
+                      device=E.dev)
+    compare_bvh(E, [None if a is None else a[idx].contiguous()
+                    for a in args[:8]], args[8], **kw)
+    log(f"  bvh_batch_sweep: shape sweep (E = 1, 5, 129, 256, 300; D = 3, "
+        f"6; both prune dtypes, bf16 boxes stored bf16 and widened to f32; "
+        f"both payload modes), d² = ε² and the float "
+        f"below, queries within a bf16 ulp of a box edge, dead entries, "
+        f"roadnet2d {len(starts)} slices of {w} entries of level {level} "
+        f"(the widest: {live} live entries, {n_e} kernel entries) of the "
+        "exact traversal: bit-identical")
+
+
+class CallRecorder:
+    """Keeps the arguments of the calls of ``module.attr`` (references, no
+    copies and no launches of its own) while active: of every call, or of
+    the calls whose index (0 for the first) ``keep`` accepts."""
+
+    def __init__(self, module, attr: str, keep=None):
         self.module, self.attr, self.calls = module, attr, []
+        self.keep, self.seen = keep, 0
         self.real = getattr(module, attr)
 
     def __enter__(self):
         def record(*args, **kw):
-            self.calls.append((args, kw))
+            if self.keep is None or self.keep(self.seen):
+                self.calls.append((args, kw))
+            self.seen += 1
             return self.real(*args, **kw)
         setattr(self.module, self.attr, record)
         return self
 
     def __exit__(self, *exc):
         setattr(self.module, self.attr, self.real)
+
+
+class BVHRecorder:
+    """While active, records the work of a BVH path: each wavefront sweep
+    (host seconds ending in a synchronize, whether it is a calibration
+    probe, its level histogram, its launches per level, and per
+    bvh_batch_sweep launch its entries and a pair of CUDA events around
+    it), and the build's morton_encode input. The events and the
+    synchronizes launch no kernel."""
+
+    def __init__(self, E):
+        self.E, self.sweeps = E, []
+        self.morton_rec = CallRecorder(E.morton, "morton_encode",
+                                       keep=lambda i: i == 0)
+
+    def __enter__(self):
+        E, t = self.E, self.E.torch
+        self.real = (E.bvh.wavefront_sweep, E.bvhk.bvh_batch_sweep)
+        real_sweep, real_kernel = self.real
+
+        def sweep(*args, **kw):
+            rec = dict(probe=bool(kw.get("stop_on_overflow")), calls=[])
+            self.sweeps.append(rec)
+            t0 = time.perf_counter()
+            out = real_sweep(*args, **kw)
+            t.cuda.synchronize()
+            rec["wall"] = time.perf_counter() - t0
+            rec["hist"] = out[3].cpu().numpy()
+            # the level loop launches once per `step` entries of a level
+            tile = min(kw.get("tile", 8192), kw["capacity"])
+            step = max(tile, (E.bvh._LEVEL_ENTRIES // tile) * tile)
+            live = rec["hist"][rec["hist"] >= 0]
+            rec["per_level"] = [-(-int(f) // step) for f in live]
+            check(sum(rec["per_level"]) == len(rec["calls"]),
+                  f"{len(rec['calls'])} bvh_batch_sweep launches for levels "
+                  f"{live.tolist()} at {step} entries a launch")
+            return out
+
+        def kernel(*args, **kw):
+            ev = (t.cuda.Event(enable_timing=True),
+                  t.cuda.Event(enable_timing=True))
+            ev[0].record()
+            out = real_kernel(*args, **kw)
+            ev[1].record()
+            self.sweeps[-1]["calls"].append((args[0].shape[0], ev))
+            return out
+
+        E.bvh.wavefront_sweep, E.bvhk.bvh_batch_sweep = sweep, kernel
+        self.morton_rec.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self.morton_rec.__exit__(*exc)
+        self.E.bvh.wavefront_sweep, self.E.bvhk.bvh_batch_sweep = self.real
+
+    @property
+    def morton(self):
+        """(args, kw) of the run's first morton_encode call."""
+        return self.morton_rec.calls[0]
+
+    @property
+    def probes(self) -> int:
+        return sum(r["probe"] for r in self.sweeps)
+
+    def exact_levels(self) -> list:
+        """Live entries per level of the first sweep that is not a probe."""
+        h = next(r["hist"] for r in self.sweeps if not r["probe"])
+        return h[h >= 0].tolist()
+
+    def widest_level(self):
+        """(level, live entries, indices of its launches) of the widest
+        level of the last sweep."""
+        r = self.sweeps[-1]
+        level = int(np.argmax(r["hist"]))
+        first = sum(r["per_level"][:level])
+        return (level, int(r["hist"][level]),
+                range(first, first + r["per_level"][level]))
+
+    def per_sweep(self) -> list:
+        """Per sweep that is not a probe: host seconds, bvh_batch_sweep ms
+        (CUDA events), launches, entries, levels."""
+        out = []
+        for r in self.sweeps:
+            if r["probe"]:
+                continue
+            out.append(dict(
+                wall=r["wall"], launches=len(r["calls"]),
+                kernel_ms=sum(a.elapsed_time(b) for _, (a, b) in r["calls"]),
+                entries=sum(e for e, _ in r["calls"]),
+                levels=int((r["hist"] >= 0).sum())))
+        return out
+
+
+def widest_level_calls(E, run_exact):
+    """Runs ``run_exact`` (one exact wavefront sweep) twice: under a
+    BVHRecorder to find its widest level, then keeping the (args, kw) of
+    each bvh_batch_sweep launch of that level. Returns (level, live
+    entries, launches)."""
+    with BVHRecorder(E) as rec:
+        run_exact()
+    level, live, want = rec.widest_level()
+    with CallRecorder(E.bvhk, "bvh_batch_sweep",
+                      keep=want.__contains__) as kept:
+        run_exact()
+    return level, live, kept.calls
 
 
 def fresh(E, name, n_corpus, m, seed):
@@ -547,6 +820,12 @@ def road_layouts(E):
     road["cross"] = (sub, dict(max_blocks=kw["max_blocks"],
                                block_q=kw["block_q"],
                                block_k=kw["block_k"]), max_nblk)
+    # the widest level of the exact wavefront traversal (no payload)
+    tree = E.bvh.build_bvh(E.tensor(pts), dims=2)
+    payload = t.full((n,), INT_MAX, dtype=t.int32, device=E.dev)
+    road["bvh_level"] = widest_level_calls(E, lambda: E.bvh.wavefront_sweep(
+        tree, tree.pts_sorted, payload, eps=eps, eps2=float(eps) ** 2,
+        capacity=1 << 30))
     return road
 
 
@@ -557,6 +836,8 @@ def phase_parity(E):
     parity_pairwise(E, road)
     parity_gathered(E, road)
     parity_cross(E, road)
+    parity_morton(E)
+    parity_bvh(E, road)
 
 
 # --------------------------------------------------------------------------
@@ -574,10 +855,15 @@ def n_clusters(labels) -> int:
     return int(labels[labels >= 0].unique().numel())
 
 
-def assert_same_result(E, a, b, what: str, rounds: bool = True) -> None:
+def assert_same_result(E, a, b, what: str, rounds: bool = True,
+                       clip: int | None = None) -> None:
+    """``b`` equal to ``a``; with ``clip``, ``b``'s counts are ``a``'s
+    clipped at ``clip`` (FDBSCAN's early-exit stage 1)."""
     for f in ("labels", "core", "counts"):
-        check(E.torch.equal(getattr(a, f).cpu(), getattr(b, f).cpu()),
-              f"{what}: {f} differ")
+        x = getattr(a, f).cpu()
+        if f == "counts" and clip is not None:
+            x = x.clamp(max=clip)
+        check(E.torch.equal(x, getattr(b, f).cpu()), f"{what}: {f} differ")
     if rounds:
         check(a.n_rounds == b.n_rounds,
               f"{what}: n_rounds {a.n_rounds} != {b.n_rounds}")
@@ -587,27 +873,50 @@ def assert_same_result(E, a, b, what: str, rounds: bool = True) -> None:
               f"{what}: frontier_tiles differ")
 
 
+def run_path(E, kw, pts, eps, min_pts, device=None):
+    """(engine, result) of one path through the entry points a user calls
+    (``make_engine`` then ``dbscan``; for FDBSCAN ``fdbscan.run``, whose
+    engines stay inside it: engine None)."""
+    if kw.get("early_exit"):
+        return None, E.fdbscan.run(pts, eps, min_pts, early_exit=True,
+                                   device=device)
+    eng = E.repro_torch.make_engine(pts, eps, engine=kw["engine"],
+                                    device=device)
+    return eng, E.repro_torch.dbscan(pts, eps, min_pts, eng=eng,
+                                     hook_loop=kw.get("hook_loop", "device"))
+
+
 def phase_reduced(E):
     phase_reduced_serve(E)
     for name, _, eps, min_pts in FULL:
         pts = E.repro_torch.synth.load(name, REDUCED_N, seed=0)
         first = None
         for path, (kw, _) in PATHS.items():
+            E.bvh._SPEC_CACHE.clear()     # each build calibrates its own
             t0 = time.perf_counter()
-            cpu = E.repro_torch.dbscan(pts, eps, min_pts, device="cpu", **kw)
+            c_eng, cpu = run_path(E, kw, pts, eps, min_pts, device="cpu")
             t1 = time.perf_counter()
-            gpu = E.repro_torch.dbscan(pts, eps, min_pts, **kw)
+            E.bvh._SPEC_CACHE.clear()
+            g_eng, gpu = run_path(E, kw, pts, eps, min_pts)
             E.torch.cuda.synchronize()
             t2 = time.perf_counter()
-            assert_same_result(E, cpu, gpu, f"{name} n={REDUCED_N} {path} "
-                               "cpu vs cuda")
+            what = f"{name} n={REDUCED_N} {path}"
+            assert_same_result(E, cpu, gpu, f"{what} cpu vs cuda")
+            spec = ""
+            if kw["engine"] == "bvh":
+                check(c_eng.meta == g_eng.meta, f"{what}: WavefrontSpec "
+                      f"{c_eng.meta} (cpu) != {g_eng.meta} (cuda)")
+                spec = (f", spec capacity {g_eng.meta.capacity} peak "
+                        f"{g_eng.meta.peak} equal")
             if first is None:
                 first = gpu
-            assert_same_result(E, first, gpu, f"{name} n={REDUCED_N} {path} "
-                               "vs grid/device", rounds=False)
-            log(f"  {name} n={REDUCED_N} {path}: bit-identical, n_rounds "
-                f"{gpu.n_rounds}{hist_txt(gpu)}, clusters {n_clusters(gpu.labels)}, "
-                f"noise {int((gpu.labels == -1).sum())}; cpu {t1 - t0:.2f} s,"
+            assert_same_result(E, first, gpu, f"{what} vs grid/device",
+                               rounds=False,
+                               clip=min_pts if kw.get("early_exit") else None)
+            log(f"  {what}: bit-identical, n_rounds "
+                f"{gpu.n_rounds}{hist_txt(gpu)}{spec}, clusters "
+                f"{n_clusters(gpu.labels)}, noise "
+                f"{int((gpu.labels == -1).sum())}; cpu {t1 - t0:.2f} s,"
                 f" cuda {t2 - t1:.2f} s")
         pts = pts[:NEIGHBORS_N]
         lists = {}
@@ -874,6 +1183,40 @@ def pair_tests(E, path, eng, rec=None):
                    f"H {spec.table_size})")
 
 
+def log_bvh_run(E, res, eng, rec, wall, min_pts):
+    """The phase times and BVH telemetry of one bvh, bvh-stack or fdbscan
+    run."""
+    tm = dict(eng.timings if eng is not None else {}, **res.timings)
+    build = (f"build {tm['build_s']:.3f} (tree {tm['tree_s']:.3f}, "
+             f"calibration {tm['calibrate_s']:.3f}, {rec.probes} probes), "
+             if "tree_s" in tm else
+             f"build {tm['build_s']:.3f}, " if "build_s" in tm else
+             "builds and stage 1 with early exit in stage1, ")
+    log(f"    phases s: {build}stage1 {tm['stage1_s']:.3f}, stage2 "
+        f"{tm['stage2_s']:.3f}, border {tm['border_s']:.3f}; total "
+        f"{wall:.3f}")
+    log(f"    n_rounds {res.n_rounds}{hist_txt(res)}, clusters "
+        f"{n_clusters(res.labels)}, noise {int((res.labels == -1).sum())}, "
+        f"core {int(res.core.sum())}")
+    if eng is None or eng.name != "bvh":
+        if eng is not None:
+            log(f"    stack depth {eng.meta['depth']} of {eng.meta['stack']}"
+                " slots")
+        return
+    spec, per = eng.meta, rec.per_sweep()
+    k_ms = sum(p["kernel_ms"] for p in per)
+    sw_s = sum(p["wall"] for p in per)
+    log(f"    spec: capacity {spec.capacity}, tile {spec.tile}, peak "
+        f"{spec.peak}, batch {spec.batch}, prune {spec.prune_dtype}; exact "
+        f"sweep levels {rec.exact_levels()}")
+    log(f"    {len(per)} sweeps: {sw_s:.3f} s, bvh_batch_sweep "
+        f"{k_ms:.3f} ms of it ({k_ms / 1e3 / sw_s:.1%}), "
+        f"{sum(p['launches'] for p in per)} launches, "
+        f"{sum(p['entries'] for p in per)} entries; per sweep (s, kernel "
+        f"ms, entries, levels): "
+        f"{[(round(p['wall'], 4), round(p['kernel_ms'], 3), p['entries'], p['levels']) for p in per]}")
+
+
 def phase_full(E):
     t = E.torch
     runs = {}
@@ -882,16 +1225,14 @@ def phase_full(E):
         runs[name] = {}
         ref = None
         for path, (kw, kernels) in PATHS.items():
-            rec = FrontierRecorder(E)
+            is_bvh = kw["engine"].startswith("bvh")
+            rec = BVHRecorder(E) if is_bvh else FrontierRecorder(E)
+            E.bvh._SPEC_CACHE.clear()     # each bvh build calibrates anew
             t.cuda.synchronize()
             E.reset_launches()
             t0 = time.perf_counter()
             with rec:
-                eng = E.repro_torch.make_engine(pts_np, eps,
-                                                engine=kw["engine"])
-                res = E.repro_torch.dbscan(pts_np, eps, min_pts, eng=eng,
-                                           hook_loop=kw.get("hook_loop",
-                                                            "device"))
+                eng, res = run_path(E, kw, pts_np, eps, min_pts)
                 t.cuda.synchronize()
             wall = time.perf_counter() - t0
             launches = E.launches()
@@ -904,33 +1245,42 @@ def phase_full(E):
                 check_invariants(E, res, pts_np, eps, min_pts, name)
                 ref = res
             else:
-                assert_same_result(E, ref, res, f"{name} {path} vs "
-                                   "grid/device", rounds=False)
-            if path == "grid/frontier":
-                check(res.n_rounds == ref.n_rounds,
-                      f"{name}: n_rounds {res.n_rounds} (frontier) != "
-                      f"{ref.n_rounds} (device)")
-            pairs, pairs_txt = pair_tests(E, path, eng, rec)
-            tm = dict(eng.timings, **res.timings)
+                assert_same_result(
+                    E, ref, res, f"{name} {path} vs grid/device",
+                    rounds=False,
+                    clip=min_pts if kw.get("early_exit") else None)
+            if path in ("grid/frontier", "bvh/frontier"):
+                base = runs[name][path.replace("frontier", "device")]["res"]
+                check(res.n_rounds == base.n_rounds,
+                      f"{name} {path}: n_rounds {res.n_rounds} != "
+                      f"{base.n_rounds} (device driver)")
             log(f"  {name} n={n} eps={eps} min_pts={min_pts} {path}: "
                 f"launches {launches}")
-            log(f"    phases s: plan {tm['plan_s']:.3f}, build "
-                f"{tm['build_s'] - tm['plan_s']:.3f}, stage1 "
-                f"{tm['stage1_s']:.3f}, stage2 {tm['stage2_s']:.3f}, border "
-                f"{tm['border_s']:.3f}; total {wall:.3f}"
-                if "plan_s" in tm else
-                f"    phases s: build {tm['build_s']:.3f}, stage1 "
-                f"{tm['stage1_s']:.3f}, stage2 {tm['stage2_s']:.3f}, border "
-                f"{tm['border_s']:.3f}; total {wall:.3f}")
-            log(f"    n_rounds {res.n_rounds}{hist_txt(res)}, clusters "
-                f"{n_clusters(res.labels)}, noise "
-                f"{int((res.labels == -1).sum())}, core {int(res.core.sum())}")
-            log(f"    pair tests per sweep {pairs_txt}")
+            pairs = None
+            if is_bvh:
+                log_bvh_run(E, res, eng, rec, wall, min_pts)
+            else:
+                pairs, pairs_txt = pair_tests(E, path, eng, rec)
+                tm = dict(eng.timings, **res.timings)
+                log(f"    phases s: plan {tm['plan_s']:.3f}, build "
+                    f"{tm['build_s'] - tm['plan_s']:.3f}, stage1 "
+                    f"{tm['stage1_s']:.3f}, stage2 {tm['stage2_s']:.3f}, "
+                    f"border {tm['border_s']:.3f}; total {wall:.3f}"
+                    if "plan_s" in tm else
+                    f"    phases s: build {tm['build_s']:.3f}, stage1 "
+                    f"{tm['stage1_s']:.3f}, stage2 {tm['stage2_s']:.3f}, "
+                    f"border {tm['border_s']:.3f}; total {wall:.3f}")
+                log(f"    n_rounds {res.n_rounds}{hist_txt(res)}, clusters "
+                    f"{n_clusters(res.labels)}, noise "
+                    f"{int((res.labels == -1).sum())}, core "
+                    f"{int(res.core.sum())}")
+                log(f"    pair tests per sweep {pairs_txt}")
             runs[name][path] = dict(eng=eng, res=res, launches=launches,
                                     pairs=pairs, rec=rec, wall=wall,
                                     eps2=float(eps) ** 2)
-        log(f"    {name}: labels, core and counts identical across "
-            f"{list(PATHS)}; invariants and 4096 brute-force counts: ok")
+        log(f"    {name}: labels and core identical across {list(PATHS)}, "
+            f"counts too (fdbscan's clipped at min_pts); invariants and 4096"
+            f" brute-force counts: ok")
         runs[name]["serve"] = serve_full(E, name, n, eps, min_pts, pts_np)
     return runs
 
@@ -1160,6 +1510,138 @@ def times_cross(E, name, run):
                ingest_bound_ms=bound(i["pairs"], i["nbytes"])[0])
 
 
+def sweep_bytes(calls) -> int:
+    """Bytes the bvh_batch_sweep launches ``calls`` must move: each tensor
+    passed read once, at its stored width (bf16 boxes 2 B a coordinate;
+    nmin and bound only in payload mode, where they are passed), and hit,
+    minroot (E, B) and push (E,) int32 written."""
+    total = 0
+    for args, _ in calls:
+        e, b, _ = args[0].shape
+        total += e * (8 * b + 4) + sum(
+            x.numel() * x.element_size() for x in args
+            if hasattr(x, "element_size"))
+    return total
+
+
+def times_morton(E, name, run):
+    """morton_encode on the bvh build's own input; plain on the same."""
+    args, kw = run["rec"].morton
+    n = args[0].shape[0]
+    ms = cuda_ms(E, lambda: E.morton.morton_encode(*args, **kw))
+    plain_ms, p_out = timed_once(
+        E, lambda: E.morton.morton_encode_plain(*args, **kw))
+    err = max_err(E.morton.morton_encode(*args, **kw), p_out)
+    return row("morton_encode", run["launches"]["morton_encode"], ms,
+               plain_ms, bound(0, 16 * n), err, plain_shapes="full",
+               points=n, dims=kw.get("dims"))
+
+
+def profile_device(E, fn):
+    """Device time of one call of ``fn`` by kernel name, from a
+    torch.profiler trace, beside the host seconds of the call (ending in a
+    synchronize): (wall s, [(name, device ms, launches)] largest first).
+    The list is empty when the trace holds no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    t = E.torch
+    fn()
+    t.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        t.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = [(ev.key, ev.self_device_time_total / 1e3, ev.count)
+            for ev in prof.key_averages()
+            if ev.device_type == DeviceType.CUDA
+            and ev.self_device_time_total > 0]
+    return wall, sorted(rows, key=lambda r: -r[1])
+
+
+# substrings of the device kernels of a wavefront sweep, by part: ours,
+# the gathers that feed it, and the scatters of its results
+SWEEP_PARTS = {"kernel": ("bvh_batch_sweep",),
+               "gather": ("gather_kernel", "index_elementwise"),
+               "scatter": ("indexFunc", "scatter_gather")}
+
+
+def profile_split(wall, rows) -> dict:
+    """Device ms of a traced sweep by part (SWEEP_PARTS, the rest as
+    "other"), its busy ms and its busy share of the host time ``wall``."""
+    out = dict(host_s=wall, busy_ms=sum(r[1] for r in rows))
+    for k, names in SWEEP_PARTS.items():
+        out[f"{k}_ms"] = sum(ms for key, ms, _ in rows
+                             if any(n in key for n in names))
+    out["other_ms"] = out["busy_ms"] - sum(out[f"{k}_ms"]
+                                           for k in SWEEP_PARTS)
+    out["busy_share"] = out["busy_ms"] / 1e3 / wall
+    return out
+
+
+def times_bvh(E, name, run):
+    """bvh_batch_sweep over the launches of the widest level of the
+    bvh/device engine's exact sweep (``sweep_counts``), beside its plain
+    version on the same inputs; and its CUDA-event time summed over the
+    run's stage-1 sweep and over every sweep of the run, beside the sweeps'
+    host seconds."""
+    eng, rec = run["eng"], run["rec"]
+    level, live, calls = widest_level_calls(
+        E, lambda: eng.sweep_counts(eng.state))
+    _, b, d = calls[0][0][0].shape
+    e = sum(a[0].shape[0] for a, _ in calls)
+    nbytes = sweep_bytes(calls)
+    ms = cuda_ms(E, lambda: [E.bvhk.bvh_batch_sweep(*a, **k)
+                             for a, k in calls])
+    plain_ms, p_out = timed_once(E, lambda: [
+        E.bvhk.bvh_batch_sweep_plain(*a, **k) for a, k in calls])
+    err = max(max_err(E.bvhk.bvh_batch_sweep(*a, **k), p)
+              for (a, k), p in zip(calls, p_out))
+    n_launches = len(calls)
+    del calls, p_out
+    order = eng.order.long()
+    croot = E.ops.fuse_core_root(run["res"].core[order],
+                                 run["res"].labels[order])
+    prof = {"exact sweep": profile_device(
+                E, lambda: eng.sweep_counts(eng.state)),
+            "terminated sweep (final labels)": profile_device(
+                E, lambda: eng.sweep_sorted(eng.state, croot))}
+    split = {}
+    for what, (wall, rows) in prof.items():
+        if not rows:
+            log(f"    bvh {what} @ {name}, torch.profiler: no device time "
+                "in the trace (not measured)")
+            continue
+        split[what] = v = profile_split(wall, rows)
+        log(f"    bvh {what} @ {name}, torch.profiler: host "
+            f"{wall * 1e3:.3f} ms, device busy {v['busy_ms']:.3f} ms "
+            f"({v['busy_share']:.1%}): gathers {v['gather_ms']:.3f}, "
+            f"bvh_batch_sweep {v['kernel_ms']:.3f}, scatters "
+            f"{v['scatter_ms']:.3f}, other {v['other_ms']:.3f} ms")
+        log(f"    bvh {what} @ {name}, device kernels (name, ms, launches): "
+            + json.dumps(rows))
+    per = rec.per_sweep()
+    stage1 = per[0]
+    return row("bvh_batch_sweep", run["launches"]["bvh_batch_sweep"], ms,
+               plain_ms, bound(e * b, nbytes), err,
+               plain_shapes="full (the widest level)", level=level,
+               live_entries=live, entries=e, level_launches=n_launches,
+               batch=b, dims=d, exact_sweep_levels=rec.exact_levels(),
+               exact_sweep_kernel_ms=stage1["kernel_ms"],
+               exact_sweep_s=stage1["wall"],
+               exact_sweep_entries=stage1["entries"],
+               bytes_per_entry=nbytes / e,
+               exact_sweep_bound_ms=bound(
+                   stage1["entries"] * b,
+                   round(stage1["entries"] * nbytes / e))[0],
+               profiles=split,
+               run_sweeps=len(per),
+               run_kernel_ms=sum(p["kernel_ms"] for p in per),
+               run_sweeps_s=sum(p["wall"] for p in per),
+               run_entries=sum(p["entries"] for p in per))
+
+
 def phase_times(E, runs):
     E.runs = runs
     per = {k: {} for k in KERNELS}
@@ -1170,6 +1652,8 @@ def phase_times(E, runs):
         per_ds["gathered_sweep"] = times_gathered(E, name, r["grid-hash"],
                                                   r["grid/device"])
         per_ds["cross_sweep"] = times_cross(E, name, r["serve"])
+        per_ds["morton_encode"] = times_morton(E, name, r["bvh/device"])
+        per_ds["bvh_batch_sweep"] = times_bvh(E, name, r["bvh/device"])
         for kname, d in per_ds.items():
             # launches: every counted path run of this dataset
             by_path = {p: pr["launches"][kname] for p, pr in r.items()
@@ -1199,6 +1683,20 @@ def phase_times(E, runs):
             f"{c['ingest_ms']:.3f} ms (bound {c['ingest_bound_ms']:.3f} ms, "
             f"{c['ingest_pair_tests']:.3e} pair tests); launches by path "
             f"{c['launches_by_path']}")
+        v = per_ds["bvh_batch_sweep"]
+        log(f"    bvh_batch_sweep @ {name}: widest level {v['level']} of the "
+            f"exact sweep, {v['live_entries']} live entries, {v['entries']} "
+            f"kernel entries in {v['level_launches']} launches; exact sweep "
+            f"{v['exact_sweep_s']:.4f} s on the host, "
+            f"{v['exact_sweep_kernel_ms']:.3f} ms of kernel (bound "
+            f"{v['exact_sweep_bound_ms']:.3f} ms, "
+            f"{v['exact_sweep_entries']} entries); bvh/device run: "
+            f"{v['run_sweeps']} sweeps, {v['run_sweeps_s']:.3f} s, kernel "
+            f"{v['run_kernel_ms']:.3f} ms, {v['run_entries']} entries; "
+            f"launches by path {v['launches_by_path']}")
+        m = per_ds["morton_encode"]
+        log(f"    morton_encode @ {name}: {m['points']} points, launches by "
+            f"path {m['launches_by_path']}")
     return per
 
 

@@ -20,14 +20,15 @@ the fields of the :class:`Engine` it builds:
                        :class:`FrontierPlan` that lets
                        ``dbscan(hook_loop="frontier")`` re-sweep only the
                        tiles that can still produce a union;
-  * ``meta``         — the engine's static plan (``CSRGridSpec`` or
-                       ``GridSpec``);
+  * ``meta``         — the engine's static plan (``CSRGridSpec``,
+                       ``GridSpec``, ``WavefrontSpec``, or the stack
+                       engine's ``{"stack", "depth"}``);
   * ``timings``      — build-time breakdown: ``make_engine`` records
                        ``build_s``; builders may add finer phases.
 
-The port registers ``grid``, ``grid-hash`` and ``brute``. The reference's
-BVH engines (``bvh``, ``bvh-stack``) are not yet ported; asking for one
-raises ``ValueError``.
+The port registers every engine of the reference: ``grid``, ``grid-hash``
+and ``brute`` (``neighbors.py``), ``bvh`` and ``bvh-stack`` (``bvh.py``).
+Asking for another raises ``ValueError``.
 """
 from __future__ import annotations
 
@@ -80,7 +81,7 @@ class Engine(NamedTuple):
     state: Any                       # NamedTuple of tensors on ``device``
     sweep: Callable                  # (state, core, root) -> (counts, minroot)
     device: torch.device
-    meta: Any = None                 # static plan (CSRGridSpec)
+    meta: Any = None                 # static plan (CSRGridSpec, ...)
     sweep_sorted: Callable | None = None  # (state, croot_sorted) ->
     #                                  (counts, minroot), all in sorted layout
     order: Any = None                # (n,) sorted position -> original index
@@ -115,8 +116,9 @@ def register_engine(name: str, build_fn: Callable, *, doc: str = "",
 
 
 def _ensure_builtin() -> None:
-    # neighbors imports this module for Engine, so it registers itself here
-    # lazily rather than being imported at the top.
+    # neighbors and bvh import this module for Engine, so they register
+    # themselves here lazily rather than being imported at the top.
+    from . import bvh as _bvh       # noqa: F401  (bvh, bvh-stack)
     from . import neighbors as _nb  # noqa: F401  (brute, grid, grid-hash)
 
 
@@ -126,8 +128,8 @@ def get_engine_spec(name: str) -> EngineSpec:
         return _REGISTRY[name]
     except KeyError:
         raise ValueError(
-            f"engine {name!r} is not yet ported to repro_torch; registered "
-            f"engines: {', '.join(available_engines())}") from None
+            f"unknown engine {name!r}; registered engines: "
+            f"{', '.join(available_engines())}") from None
 
 
 def available_engines() -> tuple:
@@ -137,21 +139,27 @@ def available_engines() -> tuple:
 
 def make_engine(points, eps: float, *, engine: str = "grid",
                 chunk: int = 2048, dims: int | None = None, spec=None,
-                device=None) -> Engine:
+                device=None, **extra) -> Engine:
     """Build an engine over ``points`` (n, 3) for radius ``eps``.
 
-    The structure build (plan, cell sort or hashing) happens here; its
-    wall-clock is recorded in ``Engine.timings["build_s"]`` (plan
-    included). ``spec`` reuses a plan (``CSRGridSpec`` for ``grid``,
-    ``GridSpec`` for ``grid-hash``) from the same dataset. ``chunk`` tiles
+    The structure build (plan, cell sort or hashing, BVH build and
+    frontier calibration) happens here; its wall-clock is recorded in
+    ``Engine.timings["build_s"]`` (plan included). ``spec`` reuses a plan
+    (``CSRGridSpec`` for ``grid``, ``GridSpec`` for ``grid-hash``,
+    ``WavefrontSpec`` for ``bvh``) from the same dataset. ``chunk`` tiles
     the brute and grid-hash query sweeps; the CSR engine's tile size is
-    part of its plan. ``device=None`` means ``cuda``.
+    part of its plan. Engine-specific keywords (``batch=``,
+    ``terminate=``, ``prune_dtype=`` for ``bvh``; ``early_stop=``,
+    ``stack=`` for ``bvh-stack``) are forwarded to the builder, and one
+    the builder does not take is a ``TypeError``. ``device=None`` means
+    ``cuda``.
     """
     entry = get_engine_spec(engine)
     dev = resolve_device(device)
     points = torch.as_tensor(points, dtype=torch.float32, device=dev)
     t0 = time.perf_counter()
-    eng = entry.build(points, float(eps), chunk=chunk, dims=dims, spec=spec)
+    eng = entry.build(points, float(eps), chunk=chunk, dims=dims, spec=spec,
+                      **extra)
     synchronize(dev)
     timings = dict(eng.timings or {})
     timings.setdefault("build_s", time.perf_counter() - t0)

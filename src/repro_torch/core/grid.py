@@ -407,11 +407,12 @@ def build_csr_grid(points: torch.Tensor, spec: CSRGridSpec) -> CSRGrid:
 
 
 def spec_from_fields(d: dict, kind=CSRGridSpec):
-    """A plan of ``kind`` (``CSRGridSpec`` or ``GridSpec``) from a plain
-    dict of its fields (for example ``dataclasses.asdict`` of the
-    reference's spec)."""
+    """A plan of ``kind`` (``CSRGridSpec``, ``GridSpec`` or
+    ``bvh.WavefrontSpec``) from a plain dict of its fields (for example
+    ``dataclasses.asdict`` of the reference's spec)."""
     kw = {f.name: d[f.name] for f in dataclasses.fields(kind)}
-    kw["origin"] = tuple(float(v) for v in kw["origin"])
+    if "origin" in kw:
+        kw["origin"] = tuple(float(v) for v in kw["origin"])
     return kind(**kw)
 
 

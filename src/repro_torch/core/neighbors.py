@@ -23,6 +23,8 @@ Engines (registered in ``engines``; one table, no ``if engine ==`` chains):
   * ``brute``     — all-pairs sweep (``pairwise_sweep`` kernel), one launch
     per sweep. O(n²) work.
 
+The BVH engines (``bvh``, ``bvh-stack``) register from ``bvh.py``.
+
 Every engine also backs ``find_neighbors`` (neighbor *lists*) through its
 ``neighbors`` capability; those lists are plain tensor code. The ``grid``
 engine alone answers cross-corpus queries (``query``, the ``cross_sweep``

@@ -1,4 +1,4 @@
-"""Public wrappers for the sweep kernels.
+"""Public wrappers for the sweep kernels and the Morton codes.
 
 They keep the reference's signatures and conventions (``starts`` in
 elements, a static ``slab`` capacity, padding with +BIG coordinates and an
@@ -12,10 +12,12 @@ from __future__ import annotations
 
 import torch
 
+from . import bvh_sweep as _bvh
 from . import cross_sweep as _cross
 from . import csr_sweep as _csr
 from . import frontier_sweep as _frontier
 from . import gathered_sweep as _gathered
+from . import morton as _morton
 from . import pairwise_sweep as _pairwise
 from .ref import INT_MAX
 
@@ -200,3 +202,35 @@ def gathered_sweep(queries, cands, cand_valid, cand_core, cand_root, eps2, *,
                              cand_root, block_b=block_b, block_k=block_k),
         eps2)
     return counts[:b], minroot[:b]
+
+
+def bvh_batch_sweep(queries, dlo, dhi, pt, croot, nmin, leaf, bound, eps2, *,
+                    bf16_prune: bool = True, prune_payload: bool = False):
+    """Batched wavefront BVH expand step (one breadth-first level of
+    (query block, node) entries).
+
+    queries (E, B, D) float, dlo/dhi/pt (E, D) float, croot/nmin/leaf (E,)
+    int, bound (E, B) int — the semantics of
+    ``kernels.bvh_sweep.bvh_batch_sweep``. The prune boxes arrive
+    pre-dilated (and, when ``bf16_prune``, already outward-rounded to bf16
+    values, in any float dtype: they widen to f32 exactly; bf16 boxes are
+    passed on as bf16). Dead entries are encoded geometrically (box lo
+    +BIG / hi −BIG, query −BIG, payload INT32_MAX, leaf 0), so there is no
+    validity plane and no padding. Without ``prune_payload``, ``nmin`` and
+    ``bound`` may be None.
+    Returns hit (E, B) int32, minroot (E, B) int32, push (E,) int32.
+    """
+    f32 = [x.to(torch.float32).contiguous() for x in (queries, pt)]
+    box = [(x if x.dtype == torch.bfloat16 else x.to(torch.float32))
+           .contiguous() for x in (dlo, dhi)]
+    i32 = [None if x is None else x.to(torch.int32).contiguous()
+           for x in (croot, nmin, leaf, bound)]
+    return _bvh.bvh_batch_sweep(f32[0], *box, f32[1], *i32, eps2,
+                                bf16_prune=bf16_prune,
+                                prune_payload=prune_payload)
+
+
+def morton_encode(coords, *, dims: int = 3):
+    """Morton codes from quantized int32 coords (n, 3) -> (n,) int32."""
+    return _morton.morton_encode(coords.to(torch.int32).contiguous(),
+                                 dims=dims)

@@ -95,7 +95,8 @@ def test_cpu_run_launches_no_kernel():
 
 def test_frontier_and_unknown_options_raise():
     # hook_loop="frontier" is ported: it matches the reference, histogram
-    # included; unknown options and unported engines still raise
+    # included; unknown options and unknown engines raise, and the BVH
+    # engines, ported since, build
     pts = synth.blobs(100, k=2, seed=1)
     ref = jdbscan(pts, 0.08, 5, hook_loop="frontier")
     port = dbscan(pts, 0.08, 5, hook_loop="frontier", device="cpu")
@@ -104,6 +105,7 @@ def test_frontier_and_unknown_options_raise():
                                   port.frontier_tiles.numpy())
     with pytest.raises(ValueError, match="unknown hook_loop"):
         dbscan(pts, 0.08, 5, hook_loop="fronteer", device="cpu")
-    for name in ("bvh", "bvh-stack", "nope"):
-        with pytest.raises(ValueError, match="not yet ported.*grid"):
-            make_engine(pts, 0.08, engine=name, device="cpu")
+    with pytest.raises(ValueError, match="unknown engine.*grid"):
+        make_engine(pts, 0.08, engine="nope", device="cpu")
+    for name in ("bvh", "bvh-stack"):
+        assert make_engine(pts, 0.08, engine=name, device="cpu").name == name

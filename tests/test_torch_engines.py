@@ -221,8 +221,11 @@ def test_find_neighbors_truncates_and_rejects_unported_engines():
     assert (cnt == 40).all()              # counts stay exact past k_max
     np.testing.assert_array_equal(
         idx.numpy(), np.tile(np.arange(8, dtype=np.int32), (40, 1)))
-    with pytest.raises(ValueError, match="not yet ported"):
+    # the BVH engine has no neighbor lists, as in the reference
+    with pytest.raises(ValueError, match="neighbor-list"):
         find_neighbors(pts, 0.1, 8, engine="bvh", device="cpu")
+    with pytest.raises(ValueError, match="unknown engine"):
+        find_neighbors(pts, 0.1, 8, engine="octree", device="cpu")
 
 
 DBSCAN_CASES = [

@@ -13,17 +13,20 @@ from repro_torch.core import grid as tgrid
 
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 MODULES = ["repro_torch", "repro_torch.baselines",
-           "repro_torch.baselines.brute", "repro_torch.core",
+           "repro_torch.baselines.brute", "repro_torch.baselines.fdbscan",
+           "repro_torch.core", "repro_torch.core.bvh",
            "repro_torch.core.dbscan", "repro_torch.core.engines",
            "repro_torch.core.grid", "repro_torch.core.labels",
            "repro_torch.core.neighbors", "repro_torch.core.union_find",
            "repro_torch.data", "repro_torch.data.synth",
            "repro_torch.distributed", "repro_torch.distributed.checkpoint",
            "repro_torch.kernels", "repro_torch.kernels.build",
+           "repro_torch.kernels.bvh_sweep",
            "repro_torch.kernels.cross_sweep",
            "repro_torch.kernels.csr_sweep",
            "repro_torch.kernels.frontier_sweep",
-           "repro_torch.kernels.gathered_sweep", "repro_torch.kernels.ops",
+           "repro_torch.kernels.gathered_sweep",
+           "repro_torch.kernels.morton", "repro_torch.kernels.ops",
            "repro_torch.kernels.pairwise_sweep", "repro_torch.kernels.ref",
            "repro_torch.serve", "repro_torch.serve.assign",
            "repro_torch.serve.faults", "repro_torch.serve.ingest",
@@ -41,6 +44,12 @@ def test_import_loads_no_jax_and_no_repro():
         "    repro_torch.dbscan(pts, 0.1, 2, engine=e, device='cpu')\n"
         "    repro_torch.find_neighbors(pts, 0.1, 4, engine=e, device='cpu')\n"
         "repro_torch.dbscan(pts, 0.1, 2, hook_loop='frontier', device='cpu')\n"
+        "for e in ('bvh', 'bvh-stack'):\n"
+        "    repro_torch.dbscan(pts, 0.1, 2, engine=e, device='cpu')\n"
+        "repro_torch.dbscan(pts, 0.1, 2, engine='bvh', hook_loop='frontier',"
+        " device='cpu')\n"
+        "from repro_torch.baselines import fdbscan\n"
+        "fdbscan.run(pts, 0.1, 2, early_exit=True, device='cpu')\n"
         "import tempfile\n"
         "from repro_torch import serve\n"
         "d = tempfile.mkdtemp()\n"
@@ -77,6 +86,9 @@ def test_entry_points_raise_without_cuda(monkeypatch):
             repro_torch.dbscan(pts, 0.1, 2, engine=engine)
         with pytest.raises(RuntimeError, match="device='cpu'"):
             repro_torch.find_neighbors(pts, 0.1, 4, engine=engine)
+    for engine in ("bvh", "bvh-stack"):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            repro_torch.dbscan(pts, 0.1, 2, engine=engine)
     res = repro_torch.dbscan(pts, 0.1, 2, device="cpu")
     assert res.labels.tolist() == [0, 0, 0, 0]
 
@@ -84,7 +96,7 @@ def test_entry_points_raise_without_cuda(monkeypatch):
 def test_kernel_build_is_keyed_and_raises_without_nvcc(monkeypatch,
                                                        tmp_path):
     from repro_torch.kernels import build
-    assert build.sources() == ["csr_sweep", "gathered_sweep"]
+    assert build.sources() == ["bvh_sweep", "csr_sweep", "gathered_sweep"]
     path = build.library_path("csr_sweep")
     assert path.parent == build.BUILD_DIR and path.suffix == ".so"
     monkeypatch.setattr(build, "NVCC_FLAGS", build.NVCC_FLAGS + ("-g",))
@@ -99,7 +111,7 @@ def test_kernel_build_is_keyed_and_raises_without_nvcc(monkeypatch,
 
 def test_kernel_build_key_covers_included_headers(monkeypatch, tmp_path):
     from repro_torch.kernels import build
-    for name in ("csr_sweep", "gathered_sweep"):
+    for name in build.sources():
         headers = build.local_headers(build.CSRC_DIR / f"{name}.cu")
         assert [h.name for h in headers] == ["sweep_common.cuh"]
     # a copy of csrc: editing the shared header, or a header it includes,

@@ -228,13 +228,14 @@ def test_save_snapshot_versions_and_gc(tmp_path):
 
 def test_build_snapshot_rejects_engine_without_query_capability():
     pts = synth.blobs(100, k=2, seed=11)
-    for engine in ("grid-hash", "brute"):
+    for engine in ("grid-hash", "brute", "bvh"):
         with pytest.raises(ValueError, match="query"):
             serve.build_snapshot(pts, EPS, MINPTS, engine=engine,
                                  device="cpu")
     # the rejection is capability-driven, not name-driven
     assert "query" in engines.get_engine_spec("grid").capabilities
     assert "query" not in engines.get_engine_spec("brute").capabilities
+    assert "query" not in engines.get_engine_spec("bvh").capabilities
 
 
 def test_scheduler_buckets_and_program_key_tracking():
