@@ -20,8 +20,13 @@ load). Phases:
      card, integer outputs bit-identical: the reference's ragged shape
      sweeps, pairs at exactly d² = ε² (and the float below), tiles with
      nblk = 0, frontier slots with n_active = 0, 1 and T under the park
-     contract, windows with invalid and duplicate-masked cells, and 64
-     seeded tiles (chunks) of the full-size roadnet2d layouts (for
+     contract, windows with invalid and duplicate-masked cells; for the
+     csr sweeps also layouts built to be culled (lattice clusters at box
+     gaps of exactly ε and one f32 step either side, 2-D and 3-D, a heavy
+     tile split over work items, +1e30 tail runs) and 64 seeded tiles of
+     the full-size iono3d layout; and 64 seeded tiles (chunks) of the
+     full-size roadnet2d layouts (the grid's with the widest slab and the
+     most kept runs among them; for
      cross_sweep, of the layout of an assign of 32,768 fresh points; its
      float output mind2 bit-identical too); morton_encode on 2-D and 3-D
      codes, the top and over-the-mask values, ragged n; bvh_batch_sweep on
@@ -56,7 +61,11 @@ load). Phases:
      to min(counts, minPts);
   6. kernel times at the full-size shapes of each kernel's path (median of
      5 launches, CUDA events), beside the plain version's time and the
-     least time the card could take (bound); morton_encode on the bvh
+     least time the card could take (bound; for the csr sweeps at the pair
+     tests of the runs their skip keeps, with the slab's pair tests, the
+     kept ones, G and S printed, and beside them the operations bound at
+     the slab's pairs and at what G = 64 would keep, and the kept pairs'
+     time at the unfused FP32 issue rate); morton_encode on the bvh
      build's own input, bvh_batch_sweep at the widest level of the exact
      sweep and summed over the sweep.
 
@@ -86,6 +95,10 @@ PEAK_FP32_OPS = 67e12
 PEAK_BYTES = 3.35e12
 # Operations per (query, candidate) pair: 3 FSUB + 3 FMUL + 3 FADD + compare.
 OPS_PER_PAIR = 10
+# FP32-pipe instructions of a pair (-fmad=false: 3 FSUB, 3 FMUL, 2 FADD,
+# compare), issued one a lane a clock (the 67e12 above counts an FMA as two
+# operations).
+FP32_INSTR_PER_PAIR = 9
 INT_MAX = np.iinfo(np.int32).max
 
 FULL = [("roadnet2d", 435_000, 0.02, 8), ("iono3d", 1_000_000, 2.0, 16)]
@@ -162,6 +175,17 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
+
+
+def fp32_issue_rate(E):
+    """(unfused FP32 instructions a second, max SM clock in MHz): the
+    card's SMs x 128 lanes x its max SM clock as nvidia-smi reads it."""
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.split()[0])
+    sms = E.torch.cuda.get_device_properties(E.dev).multi_processor_count
+    return sms * 128 * mhz * 1e6, mhz
 
 
 class Env:
@@ -243,6 +267,64 @@ def _lattice(T, block_q, nc_blocks, bk, seed):
     croot[rng.uniform(size=nc) < 0.3] = INT_MAX
     return (q, np.ascontiguousarray(c.T.astype(np.float32)), croot,
             np.zeros(T, np.int32), np.full(T, nc_blocks, np.int32))
+
+
+def _cube(rng, n, dims, at):
+    """n points on the 1/8 lattice in ``at`` + [0, 1/2]^dims (z = 0 in
+    2-D), the cube's two corners among them."""
+    p = rng.integers(0, 5, (n, 3)).astype(np.float32) / 8
+    p[0], p[1] = 0, 0.5
+    if dims == 2:
+        p[:, 2] = 0
+    return (p + np.asarray(at, np.float32)).astype(np.float32)
+
+
+def _culled(dims, block_q, block_k, run, seed):
+    """Query tiles and candidate runs (a block each, every G-column run of
+    it pinned to the block's lowest x) built to be culled at ε = 3/8, and
+    the kind of each run. Tiles 0-3 are
+    lattice cubes of side 1/2, 4 apart along x; next to tile i lie its runs
+    "own" (overlapping), "edge" (box gap exactly ε along x, its corner
+    exactly ε from the tile's), "edge-" and "edge+" (that gap one f32 step
+    smaller and larger) and "far"; then 30 "filler" runs at y = 10 and 3
+    runs of +1e30 padding. Tile i's slab covers the runs of tiles i-1 ..
+    i+1 (tile 3's reaches the end, padding included); tile 4 spans every
+    run, a heavy tile that keeps more runs than one work item holds; tiles
+    5 and 6 have nblk = 0. tests/test_torch_csr_cull.py's culled_layout."""
+    rng = np.random.default_rng(seed)
+    kinds, runs, tiles = [], [], []
+    for i in range(4):
+        tiles.append(_cube(rng, block_q, dims, (4.0 * i, 0, 0)))
+        edge = np.float32(4.0 * i) + np.float32(0.5 + 3 / 8)
+        for kind, x0 in (("own", np.float32(4.0 * i)), ("edge", edge),
+                         ("edge-", np.nextafter(edge, np.float32(-np.inf))),
+                         ("edge+", np.nextafter(edge, np.float32(np.inf))),
+                         ("far", np.float32(4.0 * i + 2))):
+            c = _cube(rng, block_k, dims, (0, 0, 0))
+            c[:, 0] += x0
+            c[::run, 0] = x0
+            kinds.append(kind)
+            runs.append(c)
+    for k in range(30):
+        kinds.append("filler")
+        runs.append(_cube(rng, block_k, dims, (0.5 * k, 10, 0)))
+    for _ in range(3):
+        kinds.append("padding")
+        runs.append(np.full((block_k, 3), 1e30, np.float32))
+    lo = np.min([r.min(0) for r in runs[:-3]], axis=0)
+    hi = np.max([r.max(0) for r in runs[:-3]], axis=0)
+    heavy = (lo + rng.integers(0, 9, (block_q, 3)) / 8 *
+             (hi - lo)).astype(np.float32)
+    heavy[0], heavy[1] = lo, hi
+    q = np.concatenate(tiles + [heavy] +
+                       [_cube(rng, block_q, dims, (1, 1, 0))] * 2)
+    n_runs = len(runs)
+    starts = np.array([0, 0, 5, 10, 0, 3, 0], np.int32)
+    nblk = np.array([10, 15, 15, n_runs - 10, n_runs, 0, 0], np.int32)
+    cands = np.ascontiguousarray(np.concatenate(runs).T)
+    croot = rng.integers(0, 9999, cands.shape[1]).astype(np.int32)
+    croot[rng.uniform(size=cands.shape[1]) < 0.3] = INT_MAX
+    return (q, cands, croot, starts, nblk), kinds
 
 
 def _park(live, T):
@@ -333,7 +415,12 @@ def _windows(E, seed, b, k, *, lattice=False):
     return E.ops.gathered_sweep_args(*(E.tensor(x) for x in arrays)), arrays
 
 
-def parity_csr(E, road):
+def parity_csr_small(E):
+    """The shape sweep, pairs at d² = ε² and the float below, nblk = 0
+    tiles, and layouts built to be culled (2-D and 3-D, G = 128 and 512):
+    box gaps of exactly ε and one f32 step either side, slabs mixing kept
+    and skipped runs, a heavy tile split over work items, nblk = 0 tiles
+    beside +1e30 tail runs."""
     t = E.torch
     bk = 128
     for T, bq, ncb, sb in SHAPES:
@@ -357,10 +444,39 @@ def parity_csr(E, road):
     check(bool((counts[rows] == 0).all()) and
           bool((k_min[rows] == INT_MAX).all()),
           "nblk = 0 tiles must give count 0 and minroot INT32_MAX")
+    for dims in (2, 3):
+        for bq, bk in ((32, 128), (64, 512)):
+            G = E.csr.run_width(bk)
+            arrays, kinds = _culled(dims, bq, bk, G, seed=dims)
+            kept = E.csr.kept_runs_plain(
+                *(E.tensor(arrays[i]) for i in (0, 1, 3, 4)), EQ_BELOW[0],
+                max_blocks=len(kinds), block_k=bk).cpu().numpy()
+            per = bk // G
+            nb3 = int(arrays[4][3]) * per
+            check(kept[:4].any() and not kept[:4].all() and
+                  kept[4].sum() > E.csr.SEG_RUNS and
+                  not kept[3, nb3 - 3 * per:nb3].any() and
+                  not kept[4, -3 * per:].any() and not kept[5:].any(),
+                  f"culled layout {dims}-D, block_k {bk}: kept runs "
+                  f"{kept.sum(1).tolist()}")
+            for eps2 in EQ_BELOW:
+                counts, _ = compare_csr(E, arrays, eps2,
+                                        max_blocks=len(kinds), block_q=bq,
+                                        block_k=bk)
+                check(int(counts[:bq].sum()) > 0, "culled layout: no hit")
+
+
+def parity_csr(E, road):
+    parity_csr_small(E)
     compare_csr(E, road["csr_args"], road["eps2"], **road["csr_kw"])
+    args, eps2, kw, info = road["iono_csr"]
+    compare_csr(E, args, eps2, **kw)
     log(f"  csr_sweep, csr_sweep_counts: shape sweep, d² = ε² and the "
-        f"float below, nblk = 0, roadnet2d {SUBSET} tiles (max nblk "
-        f"{road['max_nblk']}): bit-identical")
+        f"float below, nblk = 0, culled layouts (2-D, 3-D; G 128, 512), "
+        f"roadnet2d {SUBSET} tiles (max nblk {road['max_nblk']}, max kept "
+        f"runs {road['max_kept']}), iono3d {SUBSET} tiles (max nblk "
+        f"{info['max_nblk']}, max kept runs {info['max_kept']}): "
+        f"bit-identical")
 
 
 def parity_frontier(E, road):
@@ -752,53 +868,67 @@ def fresh(E, name, n_corpus, m, seed):
                                     structure_n=n_corpus)
 
 
-def tile_subset(E, args, kw, seed):
-    """``SUBSET`` seeded query tiles of a recorded slab-sweep call (the
-    widest among them), as (q, cands, croot, starts_blk, nblk)."""
+def tile_subset(E, args, kw, seed, also=()):
+    """``SUBSET`` seeded query tiles of a slab-sweep call's inputs (the
+    widest and the tiles ``also`` among them), as (q, cands, croot,
+    starts_blk, nblk), with the widest nblk and the tile ids."""
     q, cp, croot, st, nb = args[:5]
     bq = kw["block_q"]
     T = st.shape[0]
     nb_np = nb.cpu().numpy()
-    widest = int(nb_np.argmax())
-    others = np.delete(np.arange(T), widest)
+    must = sorted({int(nb_np.argmax()), *(int(t) for t in also)})
+    others = np.setdiff1d(np.arange(T), must)
     rng = np.random.default_rng(seed)
-    tiles = np.sort(np.append(rng.choice(others, min(SUBSET - 1, len(others)),
-                                         replace=False), widest))
+    tiles = np.sort(np.concatenate([must, rng.choice(
+        others, min(SUBSET - len(must), len(others)), replace=False)]))
     idx = E.torch.as_tensor(tiles, device=q.device)
     return (q.view(T, bq, 3)[idx].reshape(-1, 3).contiguous(), cp, croot,
-            st[idx].contiguous(), nb[idx].contiguous()), int(nb_np.max())
+            st[idx].contiguous(), nb[idx].contiguous()), int(nb_np.max()), \
+        tiles
 
 
-def road_layouts(E):
-    """Seeded subsets of the full-size roadnet2d layouts, as kernel inputs:
-    64 grid tiles (the widest among them), 64 frontier slots, 64 query
-    tiles against every candidate, 64 grid-hash chunks."""
+def grid_subset(E, eng, eps2, seed):
+    """``SUBSET`` tiles of a grid engine's slab sweep with a seeded payload
+    (the widest slab and the most kept runs among them), their kw, the
+    tile ids, and the widest nblk and most kept runs of the whole grid."""
     t = E.torch
-    name, n, eps, _ = FULL[0]
-    pts = E.repro_torch.synth.load(name, n, seed=0)
-    eng = E.repro_torch.make_engine(pts, eps)
     g, spec = eng.state, eng.meta
-    rng = np.random.default_rng(0)
-    nblk_all = g.nblk.cpu().numpy()
-    widest = int(nblk_all.argmax())
-    others = np.delete(np.arange(spec.n_tiles), widest)
-    tiles = np.sort(np.append(rng.choice(others, min(SUBSET - 1, len(others)),
-                                         replace=False), widest))
-    idx = t.as_tensor(tiles, device=E.dev)
-    q = g.q_sorted.view(spec.n_tiles, spec.chunk, 3)[idx].reshape(-1, 3)
+    rng = np.random.default_rng(seed)
     croot = t.as_tensor(rng.integers(0, spec.n, spec.n_cand).astype(np.int32),
                         device=E.dev)
     croot[t.as_tensor(rng.uniform(size=spec.n_cand) < 0.5, device=E.dev)] = \
         INT_MAX
-    st = (g.starts // spec.block_k).to(t.int32)
-    road = dict(eps2=float(eps) ** 2, max_nblk=int(nblk_all.max()),
-                csr_kw=dict(max_blocks=spec.slab // spec.block_k,
-                            block_q=spec.chunk, block_k=spec.block_k))
-    road["csr_args"] = (q.contiguous(), g.cands, croot, st[idx].contiguous(),
-                        g.nblk[idx].contiguous())
-    road["frontier_args"] = ((g.q_sorted, g.cands, croot, st, g.nblk),
-                             _park(tiles, spec.n_tiles), len(tiles))
-    road["pairwise_args"] = (q.contiguous(), g.cands, croot)
+    kw = dict(max_blocks=spec.slab // spec.block_k, block_q=spec.chunk,
+              block_k=spec.block_k)
+    full = (g.q_sorted, g.cands, croot, (g.starts // spec.block_k).to(
+        t.int32), g.nblk)
+    n_kept = E.csr.kept_runs_plain(
+        *full[:2], *full[3:], eps2, max_blocks=kw["max_blocks"],
+        block_k=spec.block_k).sum(1)
+    sub, max_nblk, tiles = tile_subset(E, full, kw, seed,
+                                       also=[int(n_kept.argmax())])
+    return sub, kw, tiles, full, dict(max_nblk=max_nblk,
+                                      max_kept=int(n_kept.max()))
+
+
+def road_layouts(E):
+    """Seeded subsets of the full-size roadnet2d layouts, as kernel inputs:
+    64 grid tiles (the widest slab and the most kept runs among them), 64
+    frontier slots, 64 query tiles against every candidate, 64 grid-hash
+    chunks; and 64 grid tiles of the full-size iono3d layout."""
+    t = E.torch
+    name, n, eps, _ = FULL[0]
+    pts = E.repro_torch.synth.load(name, n, seed=0)
+    eng = E.repro_torch.make_engine(pts, eps)
+    road = dict(eps2=float(eps) ** 2)
+    road["csr_args"], road["csr_kw"], tiles, full, info = grid_subset(
+        E, eng, road["eps2"], seed=0)
+    road.update(info)
+    q, cands, croot = road["csr_args"][:3]
+    road["frontier_args"] = (full, _park(tiles, eng.meta.n_tiles),
+                             len(tiles))
+    road["pairwise_args"] = (q, cands, croot)
+    rng = np.random.default_rng(0)
     hash_eng = E.repro_torch.make_engine(pts, eps, engine="grid-hash")
     core = t.as_tensor(rng.uniform(size=n) < 0.5, device=E.dev)
     root = t.as_tensor(rng.integers(0, n, n).astype(np.int32), device=E.dev)
@@ -816,10 +946,18 @@ def road_layouts(E):
     with CallRecorder(E.cross, "cross_sweep") as rec:
         E.serve.assign(snap, fresh(E, name, n, ASSIGN_Q, seed=1))
     args, kw = rec.calls[0]
-    sub, max_nblk = tile_subset(E, args, kw, seed=0)
+    sub, max_nblk, _ = tile_subset(E, args, kw, seed=0)
     road["cross"] = (sub, dict(max_blocks=kw["max_blocks"],
                                block_q=kw["block_q"],
                                block_k=kw["block_k"]), max_nblk)
+    # SUBSET tiles of the full-size iono3d grid
+    i_name, i_n, i_eps, _ = FULL[1]
+    i_eng = E.repro_torch.make_engine(
+        E.repro_torch.synth.load(i_name, i_n, seed=0), i_eps)
+    i_args, i_kw, _, _, i_info = grid_subset(E, i_eng, float(i_eps) ** 2,
+                                             seed=1)
+    road["iono_csr"] = (i_args, float(i_eps) ** 2, i_kw, i_info)
+    del i_eng
     # the widest level of the exact wavefront traversal (no payload)
     tree = E.bvh.build_bvh(E.tensor(pts), dims=2)
     payload = t.full((n,), INT_MAX, dtype=t.int32, device=E.dev)
@@ -1355,8 +1493,31 @@ def times_csr(E, name, run):
                                                  g.nblk, eps2, **kw),
             nbytes),
     }
+    kept = E.csr.kept_runs_plain(g.q_sorted, g.cands, st, g.nblk, eps2,
+                                 **kw)
+    G = E.csr.run_width(spec.block_k)
+    S = E.csr.SEG_RUNS
+    kept_pairs = int(kept.sum()) * G * bq
+    # what a finer G would keep: the kept-pairs bound depends on G
+    kept64 = int(E.csr.kept_runs_plain(g.q_sorted, g.cands, st, g.nblk, eps2,
+                                       run=64, **kw).sum()) * 64 * bq
+    rate, mhz = fp32_issue_rate(E)
+
+    def ops_ms(pairs):
+        return pairs * OPS_PER_PAIR / PEAK_FP32_OPS * 1e3
+    log(f"  {name}: slab pair tests {run['pairs']:.4e}, kept pair tests "
+        f"{kept_pairs:.4e} ({kept_pairs / run['pairs']:.2%}); G {G}, S {S}; "
+        f"kept runs per tile: mean {float(kept.sum(1).float().mean()):.1f}, "
+        f"max {int(kept.sum(1).max())}; G 64 would keep {kept64:.4e}")
+    log(f"  {name}: operations bound (10 a pair at 67 TFLOP/s): kept pairs "
+        f"{ops_ms(kept_pairs):.3f} ms, at G 64 {ops_ms(kept64):.3f} ms, slab "
+        f"{ops_ms(run['pairs']):.3f} ms; kept pairs at the unfused FP32 "
+        f"issue rate ({FP32_INSTR_PER_PAIR} a pair, {rate:.4e}/s at a max "
+        f"SM clock of {mhz:.0f} MHz): "
+        f"{kept_pairs * FP32_INSTR_PER_PAIR / rate * 1e3:.3f} ms")
     out = {}
     for kname, (kern, plain, nb) in calls.items():
+        # the wrapper's three launches: boxes, cull and sweep
         ms = cuda_ms(E, kern)
         # the plain version takes seconds here: one timed call at the full
         # shapes, which is also the call the kernel is compared with
@@ -1365,8 +1526,9 @@ def times_csr(E, name, run):
         launches = sum(r["launches"][kname] for r in
                        (run, E.runs[name]["grid/frontier"]))
         out[kname] = row(kname, launches, ms, plain_ms,
-                         bound(run["pairs"], nb), err,
-                         plain_shapes="full", pair_tests=run["pairs"])
+                         bound(kept_pairs, nb), err,
+                         plain_shapes="full", pair_tests=run["pairs"],
+                         kept_pair_tests=kept_pairs, G=G, S=S)
     return out
 
 
@@ -1488,7 +1650,7 @@ def times_cross(E, name, run):
         out[tag] = dict(ms=ms, pairs=slab_pairs(nb, k["block_k"], bq),
                         nbytes=nbytes, queries=T * bq,
                         max_nblk=int(nb.max()), tiles=T)
-    sub, _ = tile_subset(E, args, kw, seed=1)
+    sub, _, _ = tile_subset(E, args, kw, seed=1)
     pkw = dict(max_blocks=kw["max_blocks"], block_k=kw["block_k"])
     plain_ms, p_out = timed_once(
         E, lambda: E.cross.cross_sweep_plain(*sub, args[5], **pkw))

@@ -8,18 +8,28 @@ the min of the fused payload ``croot`` over those hits (INT32_MAX when none);
 ``csr_sweep_counts`` returns the counts alone (stage 1 discards the payload).
 
 Each function has three parts:
-  * the CUDA kernel, ``csrc/csr_sweep.cu`` (one thread block per query tile);
-  * its wrapper, which checks the inputs, allocates the outputs, launches on
-    the current stream, raises on a launch error and counts the launch in
-    ``LAUNCHES``;
+  * the CUDA kernel, ``csrc/csr_sweep.cu``: a box pass over runs of ``G``
+    candidate columns, a cull pass that keeps the runs whose box comes
+    within ε of the tile's box, and a persistent sweep of the kept runs;
+  * its wrapper, which checks the inputs, allocates the outputs and the
+    kernel's scratch (boxes, work list), launches on the current stream,
+    raises on a launch error and counts the launch in ``LAUNCHES``;
   * the plain PyTorch version (``*_plain``), vectorised over tiles and
     looping over the block index ``j`` with a ``j < nblk[t]`` mask.
+
+The kernel's skip has a plain version too (:func:`kept_runs_plain`, with
+:func:`run_boxes_plain`, :func:`tile_boxes_plain` and
+:func:`box_lower_bound`): the same f32 operations in the same order. Tests
+and the smoke run use it; the sweep does not need it, since a skipped run
+holds no hit (``csrc/csr_sweep.cu`` gives the argument).
 
 Dispatch is by the tensors' device alone: CPU tensors go to the plain
 version; CUDA tensors launch the kernel or raise. Integer outputs of the two
 are bit-identical (the d² arithmetic is ``ref._dist2``'s).
 """
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -30,6 +40,13 @@ from .ref import INT_MAX, _dist2, eps2_tensor
 # Launches of each kernel since the last reset_launches(); the plain
 # versions never count.
 LAUNCHES = {"csr_sweep": 0, "csr_sweep_counts": 0}
+
+# G: the kernel boxes runs of gcd(block_k, RUN) candidate columns (128
+# swept the full-size grids 1.7x faster than 512 on an H100: PERF.md).
+# S: runs per work item, fixed by the kernel (kSegRuns, the width of its
+# kept-run bitmask); the wrapper sizes the work list with it.
+RUN = 128
+SEG_RUNS = 32
 
 
 def reset_launches() -> None:
@@ -132,6 +149,78 @@ def csr_sweep_counts_plain(queries, cands_planar, starts_blk, nblk, eps2, *,
                         max_blocks=max_blocks, block_k=block_k)[0]
 
 
+def run_width(block_k: int) -> int:
+    """G: columns per candidate box (it divides block_k)."""
+    return math.gcd(block_k, RUN)
+
+
+def _box(x):
+    """(lo, hi) over dim -2 of ``x`` (..., n, 3), NaN dropped as fminf and
+    fmaxf drop it: an all-NaN set gives (+inf, -inf)."""
+    nan = torch.isnan(x)
+    return (torch.where(nan, float("inf"), x).amin(dim=-2),
+            torch.where(nan, float("-inf"), x).amax(dim=-2))
+
+
+def run_boxes_plain(cands_planar, run: int):
+    """Boxes (lo, hi), each (nc // run, 3), of the runs of ``run`` columns
+    of the planar candidates."""
+    return _box(cands_planar.T.reshape(-1, run, 3))
+
+
+def tile_boxes_plain(queries, n_tiles: int):
+    """Boxes (lo, hi), each (n_tiles, 3), of the query tiles."""
+    return _box(queries.reshape(n_tiles, -1, 3))
+
+
+def box_lower_bound(qlo, qhi, clo, chi):
+    """The kernel's lb: per axis gap = max(0, qlo - chi, clo - qhi), then
+    ((gx*gx) + gy*gy) + gz*gz, each f32 operation rounded on its own (the
+    order of ``ref._dist2``); never above the d² of a pair of the boxes."""
+    zero = torch.zeros((), dtype=torch.float32, device=qlo.device)
+    gap = torch.fmax(torch.fmax(zero, qlo - chi), clo - qhi)
+    acc = gap[..., 0] * gap[..., 0]
+    acc = acc + gap[..., 1] * gap[..., 1]
+    return acc + gap[..., 2] * gap[..., 2]
+
+
+def kept_runs_plain(queries, cands_planar, starts_blk, nblk, eps2, *,
+                    max_blocks: int, block_k: int = 512, run=None):
+    """(T, max_blocks · block_k / G) bool: run ``j`` of tile ``t``'s slab
+    (clamped as the kernel clamps it) is live and its box comes within ε
+    of the tile's box (``lb <= eps2``), so the kernel sweeps it. ``run``
+    (a divisor of block_k; default the kernel's G) counts what another G
+    would keep."""
+    T = starts_blk.shape[0]
+    run = run_width(block_k) if run is None else run
+    per = block_k // run
+    clo, chi = run_boxes_plain(cands_planar, run)
+    qlo, qhi = tile_boxes_plain(queries, T)
+    sb = starts_blk.clamp(min=0)
+    nb = torch.minimum(nblk.clamp(max=max_blocks),
+                       cands_planar.shape[1] // block_k - sb).clamp(min=0)
+    j = torch.arange(max_blocks * per, device=queries.device)
+    live = j < (nb * per)[:, None]
+    r = torch.where(live, sb[:, None].long() * per + j, 0)
+    lb = box_lower_bound(qlo[:, None], qhi[:, None], clo[r], chi[r])
+    return live & (lb <= eps2_tensor(eps2, queries.device))
+
+
+def _scratch(queries, cands_planar, starts_blk, *, max_blocks, block_k):
+    """The kernel's scratch: the run width, the run boxes (8 f32 a run),
+    the work list (3 int32 an item, room for every segment of every slab)
+    and its two counters."""
+    run = run_width(block_k)
+    cap = starts_blk.shape[0] * -(-(max_blocks * (block_k // run))
+                                  // SEG_RUNS)
+    dev = queries.device
+    boxes = torch.empty(cands_planar.shape[1] // run * 8,
+                        dtype=torch.float32, device=dev)
+    items = torch.empty(max(cap, 1) * 3, dtype=torch.int32, device=dev)
+    counters = torch.empty(2, dtype=torch.int32, device=dev)
+    return run, boxes, items, counters
+
+
 def _cuda_or_raise(x: torch.Tensor, kernel: str) -> None:
     if x.device.type != "cuda":
         raise ValueError(f"{kernel} takes CPU tensors (plain version) or "
@@ -157,16 +246,21 @@ def csr_sweep(queries, cands_planar, croot, starts_blk, nblk, eps2, *,
         return csr_sweep_plain(queries, cands_planar, croot, starts_blk, nblk,
                                eps2, max_blocks=max_blocks, block_k=block_k)
     _cuda_or_raise(queries, "csr_sweep")
+    # fresh outputs each call: the kernel's cull pass sets them to 0 and
+    # INT32_MAX, then its sweep adds and mins into them
     counts = torch.empty(queries.shape[0], dtype=torch.int32,
                          device=queries.device)
     minroot = torch.empty_like(counts)
     if starts_blk.shape[0] == 0:
         return counts, minroot
-    build.launch("csr_sweep", "csr_sweep_launch", "pppppfiiiiipp",
+    run, boxes, items, counters = _scratch(
+        queries, cands_planar, starts_blk, max_blocks=max_blocks,
+        block_k=block_k)
+    build.launch("csr_sweep", "csr_sweep_launch", "pppppfiiiiiippppp",
                  "csr_sweep", queries.device, queries, cands_planar, croot,
                  starts_blk, nblk, _eps2_f32(eps2), starts_blk.shape[0],
-                 block_q, cands_planar.shape[1], max_blocks, block_k, counts,
-                 minroot)
+                 block_q, cands_planar.shape[1], max_blocks, block_k, run,
+                 counts, minroot, boxes, items, counters)
     LAUNCHES["csr_sweep"] += 1
     return counts, minroot
 
@@ -186,9 +280,13 @@ def csr_sweep_counts(queries, cands_planar, starts_blk, nblk, eps2, *,
                          device=queries.device)
     if starts_blk.shape[0] == 0:
         return counts
-    build.launch("csr_sweep", "csr_sweep_counts_launch", "ppppfiiiiip",
+    run, boxes, items, counters = _scratch(
+        queries, cands_planar, starts_blk, max_blocks=max_blocks,
+        block_k=block_k)
+    build.launch("csr_sweep", "csr_sweep_counts_launch", "ppppfiiiiiipppp",
                  "csr_sweep_counts", queries.device, queries, cands_planar,
                  starts_blk, nblk, _eps2_f32(eps2), starts_blk.shape[0],
-                 block_q, cands_planar.shape[1], max_blocks, block_k, counts)
+                 block_q, cands_planar.shape[1], max_blocks, block_k, run,
+                 counts, boxes, items, counters)
     LAUNCHES["csr_sweep_counts"] += 1
     return counts
