@@ -21,10 +21,16 @@ load). Phases:
      sweeps, pairs at exactly d² = ε² (and the float below), tiles with
      nblk = 0, frontier slots with n_active = 0, 1 and T under the park
      contract, windows with invalid and duplicate-masked cells; for the
-     csr sweeps also layouts built to be culled (lattice clusters at box
-     gaps of exactly ε and one f32 step either side, 2-D and 3-D, a heavy
-     tile split over work items, +1e30 tail runs) and 64 seeded tiles of
-     the full-size iono3d layout; and 64 seeded tiles (chunks) of the
+     four slab sweeps that skip runs (csr_sweep, csr_sweep_counts,
+     frontier_sweep, cross_sweep) also layouts built to be culled (lattice
+     clusters at box gaps of exactly ε and one f32 step either side, 2-D
+     and 3-D, a heavy tile split over work items, +1e30 tail runs; for the
+     frontier the heavy tile live and parked, for the cross query tiles of
+     +1e30 padding rows), frontier_sweep and cross_sweep called once each
+     under torch.cuda.set_sync_debug_mode("error") (a host read of
+     n_active or of the work-item count fails the run), and for the csr
+     sweeps 64 seeded tiles of the full-size iono3d layout; and 64 seeded
+     tiles (chunks) of the
      full-size roadnet2d layouts (the grid's with the widest slab and the
      most kept runs among them; for
      cross_sweep, of the layout of an assign of 32,768 fresh points; its
@@ -35,7 +41,9 @@ load). Phases:
      pairs at d² = ε², queries a fraction of a bf16 ulp either side of a
      box edge, dead entries, and 64 seeded slices of the widest level of
      the full-size roadnet2d exact traversal;
-  4. whole path at n = 20,000 (roadnet2d, iono3d), every path:
+  4. whole path at n = 20,000 (roadnet2d, iono3d at the full-size ε and
+     minPts, where it is all noise, and iono3d at ε = 4.0, minPts = 16,
+     where it clusters and hooks), every path:
      device="cpu" with the plain versions against the card with the
      kernels, bit-identical labels, core, counts, n_rounds and frontier
      histogram; ``find_neighbors`` of every engine at n = 4,000, cpu
@@ -61,11 +69,13 @@ load). Phases:
      to min(counts, minPts);
   6. kernel times at the full-size shapes of each kernel's path (median of
      5 launches, CUDA events), beside the plain version's time and the
-     least time the card could take (bound; for the csr sweeps at the pair
-     tests of the runs their skip keeps, with the slab's pair tests, the
-     kept ones, G and S printed, and beside them the operations bound at
-     the slab's pairs and at what G = 64 would keep, and the kept pairs'
-     time at the unfused FP32 issue rate); morton_encode on the bvh
+     least time the card could take (bound; for the four slab sweeps that
+     skip runs at the pair tests of the runs their skip keeps, with the
+     slab's pair tests, the kept ones and their share printed, and beside
+     them the kept pairs' time at the unfused FP32 issue rate; for the csr
+     sweeps also the operations bound at the slab's pairs and at what
+     G = 64 would keep; for pairwise_sweep its FP32 issue-rate floor over
+     every pair); morton_encode on the bvh
      build's own input, bvh_batch_sweep at the widest level of the exact
      sweep and summed over the sweep.
 
@@ -103,6 +113,11 @@ INT_MAX = np.iinfo(np.int32).max
 
 FULL = [("roadnet2d", 435_000, 0.02, 8), ("iono3d", 1_000_000, 2.0, 16)]
 REDUCED_N = 20_000
+# (dataset, ε, minPts) of the reduced phase: the full-size settings, and
+# iono3d at an ε where n = 20,000 clusters (at ε = 2.0 it is all noise), so
+# that the hooking rounds run there too
+REDUCED = [(name, eps, min_pts) for name, _, eps, min_pts in FULL] + \
+    [("iono3d", 4.0, 16)]
 NEIGHBORS_N = 4_000
 SHAPES = [(1, 8, 1, 1), (4, 64, 8, 3), (3, 256, 6, 6), (7, 32, 16, 2)]
 PAIR_SHAPES = [(1, 1), (7, 513), (256, 512), (100, 1000), (513, 257)]
@@ -444,26 +459,19 @@ def parity_csr_small(E):
     check(bool((counts[rows] == 0).all()) and
           bool((k_min[rows] == INT_MAX).all()),
           "nblk = 0 tiles must give count 0 and minroot INT32_MAX")
-    for dims in (2, 3):
-        for bq, bk in ((32, 128), (64, 512)):
-            G = E.csr.run_width(bk)
-            arrays, kinds = _culled(dims, bq, bk, G, seed=dims)
-            kept = E.csr.kept_runs_plain(
-                *(E.tensor(arrays[i]) for i in (0, 1, 3, 4)), EQ_BELOW[0],
-                max_blocks=len(kinds), block_k=bk).cpu().numpy()
-            per = bk // G
-            nb3 = int(arrays[4][3]) * per
-            check(kept[:4].any() and not kept[:4].all() and
-                  kept[4].sum() > E.csr.SEG_RUNS and
-                  not kept[3, nb3 - 3 * per:nb3].any() and
-                  not kept[4, -3 * per:].any() and not kept[5:].any(),
-                  f"culled layout {dims}-D, block_k {bk}: kept runs "
-                  f"{kept.sum(1).tolist()}")
-            for eps2 in EQ_BELOW:
-                counts, _ = compare_csr(E, arrays, eps2,
-                                        max_blocks=len(kinds), block_q=bq,
-                                        block_k=bk)
-                check(int(counts[:bq].sum()) > 0, "culled layout: no hit")
+    for dims, bq, bk, arrays, kinds, kept in _culled_cases(E):
+        per = bk // E.csr.run_width(bk)
+        nb3 = int(arrays[4][3]) * per
+        check(kept[:4].any() and not kept[:4].all() and
+              kept[4].sum() > E.csr.SEG_RUNS and
+              not kept[3, nb3 - 3 * per:nb3].any() and
+              not kept[4, -3 * per:].any() and not kept[5:].any(),
+              f"culled layout {dims}-D, block_k {bk}: kept runs "
+              f"{kept.sum(1).tolist()}")
+        for eps2 in EQ_BELOW:
+            counts, _ = compare_csr(E, arrays, eps2, max_blocks=len(kinds),
+                                    block_q=bq, block_k=bk)
+            check(int(counts[:bq].sum()) > 0, "culled layout: no hit")
 
 
 def parity_csr(E, road):
@@ -479,7 +487,25 @@ def parity_csr(E, road):
         f"bit-identical")
 
 
-def parity_frontier(E, road):
+def _culled_cases(E):
+    """The culled layouts of parity_csr_small (2-D and 3-D; G = 128 and
+    512), each with its block sizes, its kinds of runs and its kept-run
+    mask over every tile (csr_sweep.kept_runs_plain at ε² = 9/64)."""
+    for dims in (2, 3):
+        for bq, bk in ((32, 128), (64, 512)):
+            G = E.csr.run_width(bk)
+            arrays, kinds = _culled(dims, bq, bk, G, seed=dims)
+            kept = E.csr.kept_runs_plain(
+                *(E.tensor(arrays[i]) for i in (0, 1, 3, 4)), EQ_BELOW[0],
+                max_blocks=len(kinds), block_k=bk).cpu().numpy()
+            yield dims, bq, bk, arrays, kinds, kept
+
+
+def parity_frontier_small(E):
+    """The shape sweep with n_active = 0, 1, T/2, T under the park
+    contract, pairs at d² = ε² and the float below with an nblk = 0 tile,
+    and the culled layouts with their heavy tile live or parked; one call
+    under torch.cuda.set_sync_debug_mode("error")."""
     bk = 128
     for T, bq, ncb, sb in SHAPES:
         arrays = _mk_slab(T, bq, ncb, sb, bk)
@@ -498,11 +524,58 @@ def parity_frontier(E, road):
                                eps2, max_blocks=ncb, block_q=bq, block_k=bk)
         check(bool((out[bq:2 * bq] == INT_MAX).all()),
               "a live slot of an nblk = 0 tile must hold INT32_MAX")
+    kept_slots = []
+    for dims, bq, bk, arrays, kinds, kept in _culled_cases(E):
+        T = len(arrays[3])
+        # the heavy tile (4) first, lattice tiles out of order, the nblk =
+        # 0 tiles last; every prefix is a live set
+        order = [4, 2, 0, 3, 1, 5, 6]
+        for n_active in sorted({0, 1, T // 2, T}):
+            active = _park(order[:n_active], T)
+            k_rows = E.frontier.kept_runs_plain(
+                *(E.tensor(arrays[i]) for i in (0, 1, 3, 4)),
+                E.tensor(active), E.tensor(np.array([n_active], np.int32)),
+                EQ_BELOW[0], max_blocks=len(kinds), block_k=bk)
+            check(np.array_equal(k_rows.cpu().numpy()[:n_active],
+                                 kept[order[:n_active]]) and
+                  not bool(k_rows[n_active:].any()),
+                  "frontier kept runs != the csr kept runs of the live tiles")
+            kept_slots.append(int(k_rows.sum()))
+            for eps2 in EQ_BELOW:
+                out = compare_frontier(E, arrays, active, n_active, eps2,
+                                       max_blocks=len(kinds), block_q=bq,
+                                       block_k=bk)
+                check(bool((out[n_active * bq:] == INT_MAX).all()),
+                      "parked frontier slots must hold INT32_MAX")
+                check(n_active == 0 or bool((out[:bq] != INT_MAX).any()),
+                      "culled layout: the heavy tile found no core hit")
+    # n_active read on the device: a host read in the wrapper raises here
+    q, cp, croot, st, nb = (E.tensor(x) for x in arrays)
+    act = E.tensor(_park(order[:3], T))
+    na = E.tensor(np.array([3], np.int32))
+    E.torch.cuda.synchronize()
+    E.torch.cuda.set_sync_debug_mode("error")
+    try:
+        k = E.frontier.frontier_sweep(q, cp, croot, st, nb, act, na,
+                                      EQ_BELOW[0], max_blocks=len(kinds),
+                                      block_q=bq, block_k=bk)
+    finally:
+        E.torch.cuda.set_sync_debug_mode(0)
+    same(E, "frontier_sweep (sync debug)", k, E.frontier.frontier_sweep_plain(
+        q, cp, croot, st, nb, act, na, EQ_BELOW[0], max_blocks=len(kinds),
+        block_k=bk))
+    return kept_slots
+
+
+def parity_frontier(E, road):
+    kept_slots = parity_frontier_small(E)
     compare_frontier(E, *road["frontier_args"], road["eps2"],
                      **road["csr_kw"])
     log(f"  frontier_sweep: shape sweep with n_active = 0, 1, T/2, T (park "
         f"contract), d² = ε² and the float below with an nblk = 0 tile, "
-        f"roadnet2d {SUBSET} active tiles: bit-identical")
+        f"culled layouts (2-D, 3-D; G 128, 512; heavy tile live and parked, "
+        f"kept runs per call {kept_slots}), one call under sync debug "
+        f"mode \"error\", roadnet2d {SUBSET} active tiles: bit-identical")
 
 
 def parity_pairwise(E, road):
@@ -560,7 +633,26 @@ def parity_gathered(E, road):
         f"{road['chunk']} queries x {road['window']} window: bit-identical")
 
 
-def parity_cross(E, road):
+def _with_padding_tiles(arrays, block_q, n_real):
+    """``arrays`` (a culled layout) with two query tiles more whose slab is
+    every run: one of ``block_q - n_real`` +1e30 padding rows after
+    ``n_real`` rows of tile 0 (the last tile of a padded bucket), and one
+    of padding rows alone."""
+    q, cp, croot, st, nb = arrays
+    tail = np.full((2 * block_q, 3), 1e30, np.float32)
+    tail[:n_real] = q[:n_real]
+    n_blocks = np.int32(max(nb))
+    return (np.concatenate([q, tail]), cp, croot,
+            np.concatenate([st, [0, 0]]).astype(np.int32),
+            np.concatenate([nb, [n_blocks, n_blocks]]).astype(np.int32))
+
+
+def parity_cross_small(E):
+    """The shape sweep, pairs at d² = ε² and the float below (against
+    numpy too), nblk = 0 tiles, and the culled layouts with two tiles of
+    +1e30 padding rows more; one call under
+    torch.cuda.set_sync_debug_mode("error"). Returns the runs the padding
+    tiles keep, per layout."""
     bk = 128
     for T, bq, ncb, sb in SHAPES:
         q, cp, croot, st, nb = _mk_slab(T, bq, ncb, sb, bk, seed=11)
@@ -591,12 +683,47 @@ def parity_cross(E, road):
           bool((k_min[rows] == INT_MAX).all()) and
           bool(E.torch.isposinf(k_d2[rows]).all()),
           "nblk = 0 tiles must give 0, INT32_MAX and +inf")
+    pad_kept = []
+    for dims, bq, bk, arrays, kinds, _ in _culled_cases(E):
+        arrays = _with_padding_tiles(arrays, bq, bq // 2)
+        q, cp, croot, st, nb = arrays
+        kept = E.csr.kept_runs_plain(
+            *(E.tensor(arrays[i]) for i in (0, 1, 3, 4)), EQ_BELOW[0],
+            max_blocks=len(kinds), block_k=bk).cpu().numpy()
+        pad_kept.append(kept[-2:].sum(1).tolist())
+        for eps2 in EQ_BELOW:
+            counts, _, mind2 = compare_cross(
+                E, (q, cp, croot[None, :], st, nb), eps2,
+                max_blocks=len(kinds), block_q=bq, block_k=bk)
+            check(int(counts[:bq].sum()) > 0 and
+                  bool(E.torch.isfinite(mind2[:bq]).any()),
+                  "culled layout: no core hit in tile 0")
+    # one call under sync debug mode: a host read in the wrapper raises
+    args = [E.tensor(x) for x in (q, cp, croot[None, :], st, nb)]
+    E.torch.cuda.synchronize()
+    E.torch.cuda.set_sync_debug_mode("error")
+    try:
+        k = E.cross.cross_sweep(*args, EQ_BELOW[0], max_blocks=len(kinds),
+                                block_q=bq, block_k=bk)
+    finally:
+        E.torch.cuda.set_sync_debug_mode(0)
+    p = E.cross.cross_sweep_plain(*args, EQ_BELOW[0], max_blocks=len(kinds),
+                                  block_k=bk)
+    for what, a, b in zip(("counts", "minroot", "mind2"), k, p):
+        same(E, f"cross_sweep {what} (sync debug)", a, b)
+    return pad_kept
+
+
+def parity_cross(E, road):
+    pad_kept = parity_cross_small(E)
     args, kw, max_nblk = road["cross"]
     compare_cross(E, args, road["eps2"], **kw)
     log(f"  cross_sweep: shape sweep, d² = ε² and the float below, nblk = 0, "
-        f"roadnet2d assign of {ASSIGN_Q} fresh points, {SUBSET} of its "
-        f"query tiles (max nblk {max_nblk}): counts, minroot and mind2 "
-        "bit-identical")
+        f"culled layouts (2-D, 3-D; G 128, 512) with a tile half of +1e30 "
+        f"padding rows and one of padding alone (kept runs per layout "
+        f"{pad_kept}), one call under sync debug mode \"error\", roadnet2d "
+        f"assign of {ASSIGN_Q} fresh points, {SUBSET} of its query tiles "
+        f"(max nblk {max_nblk}): counts, minroot and mind2 bit-identical")
 
 
 def compare_bvh(E, args, eps2, **kw):
@@ -1026,7 +1153,7 @@ def run_path(E, kw, pts, eps, min_pts, device=None):
 
 def phase_reduced(E):
     phase_reduced_serve(E)
-    for name, _, eps, min_pts in FULL:
+    for name, eps, min_pts in REDUCED:
         pts = E.repro_torch.synth.load(name, REDUCED_N, seed=0)
         first = None
         for path, (kw, _) in PATHS.items():
@@ -1038,7 +1165,7 @@ def phase_reduced(E):
             g_eng, gpu = run_path(E, kw, pts, eps, min_pts)
             E.torch.cuda.synchronize()
             t2 = time.perf_counter()
-            what = f"{name} n={REDUCED_N} {path}"
+            what = f"{name} n={REDUCED_N} eps={eps} {path}"
             assert_same_result(E, cpu, gpu, f"{what} cpu vs cuda")
             spec = ""
             if kw["engine"] == "bvh":
@@ -1070,7 +1197,8 @@ def phase_reduced(E):
             check(E.torch.equal(idx, lists["grid"][0]) and
                   E.torch.equal(cnt, lists["grid"][1]),
                   f"{name} find_neighbors: {engine} != grid")
-        log(f"  {name} n={NEIGHBORS_N} find_neighbors (k_max 32), grid / "
+        log(f"  {name} n={NEIGHBORS_N} eps={eps} find_neighbors (k_max 32), "
+            f"grid / "
             f"grid-hash / brute: cpu = cuda, engines agree; mean count "
             f"{float(lists['grid'][1].float().mean()):.2f}")
 
@@ -1532,9 +1660,24 @@ def times_csr(E, name, run):
     return out
 
 
+def kept_bounds(E, name, what, kept_pairs, pairs):
+    """Logs a sweep's kept pair tests, their share of its slab's, and the
+    least time of the kept pairs at the operations count (10 a pair at 67
+    TFLOP/s) and at the unfused FP32 issue rate."""
+    rate, mhz = fp32_issue_rate(E)
+    log(f"  {name} {what}: slab pair tests {pairs:.4e}, kept pair tests "
+        f"{kept_pairs:.4e} ({kept_pairs / max(pairs, 1):.2%}); kept pairs "
+        f"{kept_pairs * OPS_PER_PAIR / PEAK_FP32_OPS * 1e3:.4f} ms at 67 "
+        f"TFLOP/s (10 a pair), "
+        f"{kept_pairs * FP32_INSTR_PER_PAIR / rate * 1e3:.4f} ms at the "
+        f"FP32 issue rate ({FP32_INSTR_PER_PAIR} a pair, {rate:.4e}/s at "
+        f"{mhz:.0f} MHz)")
+
+
 def times_frontier(E, name, run):
     """frontier_sweep on the main path's own round-1 inputs (the widest
-    frontier), plain on its first 64 live slots."""
+    frontier), plain on its first 64 live slots; bound at the pairs of the
+    runs its skip keeps."""
     rec = run["rec"]
     (args, kw), (na1, pairs1) = rec.calls[0], rec.live_pairs()[0]
     q, cp, croot, st, nblk, active, n_active, eps2 = args
@@ -1542,11 +1685,16 @@ def times_frontier(E, name, run):
     ms = cuda_ms(E, kern)
     T, bq = st.shape[0], kw["block_q"]
     nbytes = T * bq * 12 + cp.shape[1] * 16 + T * 12 + 4 + T * bq * 4
+    pkw = dict(max_blocks=kw["max_blocks"], block_k=kw["block_k"])
+    kept = E.frontier.kept_runs_plain(q, cp, st, nblk, active, n_active, eps2,
+                                      **pkw)
+    G = E.csr.run_width(kw["block_k"])
+    kept_pairs = int(kept.sum()) * G * bq
+    kept_bounds(E, name, "frontier_sweep round 1", kept_pairs, pairs1)
     sub = min(SUBSET, na1)
     sub_args = (q, cp, croot, st, nblk,
                 E.tensor(_park(active[:sub].tolist(), T)),
                 E.tensor(np.array([sub], np.int32)), eps2)
-    pkw = dict(max_blocks=kw["max_blocks"], block_k=kw["block_k"])
     plain_ms, p_out = timed_once(
         E, lambda: E.frontier.frontier_sweep_plain(*sub_args, **pkw))
     k_sub_ms, k_out = timed_once(
@@ -1554,10 +1702,11 @@ def times_frontier(E, name, run):
     border_ms = cuda_ms(E, lambda: E.frontier.frontier_sweep(
         *rec.calls[-1][0], **rec.calls[-1][1]))
     return row("frontier_sweep", run["launches"]["frontier_sweep"], ms,
-               plain_ms, bound(pairs1, nbytes), max_err(k_out, p_out),
+               plain_ms, bound(kept_pairs, nbytes), max_err(k_out, p_out),
                plain_shapes=f"{sub} of round 1's {na1} live tiles",
                ms_on_plain_shapes=k_sub_ms, live_tiles=na1,
-               pair_tests=pairs1, tiles=T, border_ms=border_ms,
+               pair_tests=pairs1, kept_pair_tests=kept_pairs, G=G,
+               S=E.csr.SEG_RUNS, tiles=T, border_ms=border_ms,
                border_live_tiles=rec.live_pairs()[-1][0])
 
 
@@ -1577,6 +1726,12 @@ def times_pairwise(E, name, run):
         E, lambda: E.pairwise.pairwise_sweep_plain(q_sub, cp, croot, eps2))
     k_sub_ms, k_out = timed_once(
         E, lambda: E.pairwise.pairwise_sweep(q_sub, cp, croot, eps2))
+    rate, mhz = fp32_issue_rate(E)
+    floor_ms = nq * nc * FP32_INSTR_PER_PAIR / rate * 1e3
+    log(f"  {name} pairwise_sweep: {nq * nc:.4e} pair tests (brute: every "
+        f"pair, nothing to skip); FP32 issue-rate floor {floor_ms:.3f} ms "
+        f"({FP32_INSTR_PER_PAIR} a pair, {rate:.4e}/s at {mhz:.0f} MHz); the "
+        f"kernel at {floor_ms / ms:.1%} of that floor")
     return row("pairwise_sweep", run["launches"]["pairwise_sweep"], ms,
                plain_ms, bound(nq * nc, nbytes), max_err(k_out, p_out),
                plain_shapes=f"{SUBSET} query tiles of 256 x {nc} candidates",
@@ -1647,7 +1802,21 @@ def times_cross(E, name, run):
         T, bq, nc = st.shape[0], k["block_q"], cp.shape[1]
         ms = cuda_ms(E, lambda: E.cross.cross_sweep(*a, **k))
         nbytes = T * bq * 12 + nc * 16 + T * 8 + T * bq * 12
-        out[tag] = dict(ms=ms, pairs=slab_pairs(nb, k["block_k"], bq),
+        kept = E.csr.kept_runs_plain(q, cp, st, nb, eps2,
+                                     max_blocks=k["max_blocks"],
+                                     block_k=k["block_k"])
+        G = E.csr.run_width(k["block_k"])
+        pairs = slab_pairs(nb, k["block_k"], bq)
+        kept_pairs = int(kept.sum()) * G * bq
+        kept_bounds(E, name, f"cross_sweep ({tag}, {T * bq} queries)",
+                    kept_pairs, pairs)
+        # tiles with +1e30 padding rows: their box reaches 1e30
+        padded = (q.view(T, bq, 3) == 1e30).all(-1).any(-1).nonzero()[:, 0]
+        runs = kept.sum(1)
+        log(f"    kept runs per tile: mean {float(runs.float().mean()):.1f}, "
+            f"max {int(runs.max())}; tiles with padding rows "
+            f"{padded.numel()}, their kept runs {runs[padded].tolist()}")
+        out[tag] = dict(ms=ms, pairs=pairs, kept_pairs=kept_pairs, G=G,
                         nbytes=nbytes, queries=T * bq,
                         max_nblk=int(nb.max()), tiles=T)
     sub, _, _ = tile_subset(E, args, kw, seed=1)
@@ -1663,13 +1832,15 @@ def times_cross(E, name, run):
     err = max(max_err(k_out[:2], p_out[:2]), d2_err)
     a, i = out["assign"], out["ingest"]
     return row("cross_sweep", run["launches"]["cross_sweep"], a["ms"],
-               plain_ms, bound(a["pairs"], a["nbytes"]), err,
+               plain_ms, bound(a["kept_pairs"], a["nbytes"]), err,
                plain_shapes=f"{SUBSET} query tiles of the assign",
                ms_on_plain_shapes=k_sub_ms, pair_tests=a["pairs"],
+               kept_pair_tests=a["kept_pairs"], G=a["G"], S=E.csr.SEG_RUNS,
                queries=a["queries"], max_nblk=a["max_nblk"],
                ingest_ms=i["ms"], ingest_queries=i["queries"],
                ingest_pair_tests=i["pairs"],
-               ingest_bound_ms=bound(i["pairs"], i["nbytes"])[0])
+               ingest_kept_pair_tests=i["kept_pairs"],
+               ingest_bound_ms=bound(i["kept_pairs"], i["nbytes"])[0])
 
 
 def sweep_bytes(calls) -> int:
@@ -1791,6 +1962,7 @@ def times_bvh(E, name, run):
                live_entries=live, entries=e, level_launches=n_launches,
                batch=b, dims=d, exact_sweep_levels=rec.exact_levels(),
                exact_sweep_kernel_ms=stage1["kernel_ms"],
+               exact_sweep_launches=stage1["launches"],
                exact_sweep_s=stage1["wall"],
                exact_sweep_entries=stage1["entries"],
                bytes_per_entry=nbytes / e,
@@ -1840,17 +2012,20 @@ def phase_times(E, runs):
             f"{g['csr_sweep_ms']:.3f} ms")
         c = per_ds["cross_sweep"]
         log(f"    cross_sweep @ {name}: assign of {c['queries']} queries "
-            f"{c['ms']:.3f} ms ({c['pair_tests']:.3e} pair tests, max nblk "
-            f"{c['max_nblk']}); ingest cross query of {c['ingest_queries']} "
-            f"{c['ingest_ms']:.3f} ms (bound {c['ingest_bound_ms']:.3f} ms, "
-            f"{c['ingest_pair_tests']:.3e} pair tests); launches by path "
+            f"{c['ms']:.3f} ms ({c['pair_tests']:.3e} slab pair tests, "
+            f"{c['kept_pair_tests']:.3e} kept, max nblk {c['max_nblk']}); "
+            f"ingest cross query of {c['ingest_queries']} "
+            f"{c['ingest_ms']:.3f} ms (bound {c['ingest_bound_ms']:.4f} ms, "
+            f"{c['ingest_pair_tests']:.3e} slab pair tests, "
+            f"{c['ingest_kept_pair_tests']:.3e} kept); launches by path "
             f"{c['launches_by_path']}")
         v = per_ds["bvh_batch_sweep"]
         log(f"    bvh_batch_sweep @ {name}: widest level {v['level']} of the "
             f"exact sweep, {v['live_entries']} live entries, {v['entries']} "
             f"kernel entries in {v['level_launches']} launches; exact sweep "
             f"{v['exact_sweep_s']:.4f} s on the host, "
-            f"{v['exact_sweep_kernel_ms']:.3f} ms of kernel (bound "
+            f"{v['exact_sweep_kernel_ms']:.3f} ms of kernel in "
+            f"{v['exact_sweep_launches']} launches (bound "
             f"{v['exact_sweep_bound_ms']:.3f} ms, "
             f"{v['exact_sweep_entries']} entries); bvh/device run: "
             f"{v['run_sweeps']} sweeps, {v['run_sweeps_s']:.3f} s, kernel "

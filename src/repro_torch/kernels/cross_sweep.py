@@ -16,19 +16,24 @@ label of core corpus points and INT32_MAX elsewhere. Per query:
   * ``mind2``   — min d² over the hits whose ``croot`` is not INT32_MAX,
     +inf when none: the distance to the deciding core point.
 
-Three parts, as in ``csr_sweep.py``: the CUDA kernel (``csrc/csr_sweep.cu``,
-``cross_sweep_kernel``: the staged slab walk of ``csr_sweep`` with a third
-register accumulator), its wrapper, and the plain PyTorch version. CPU
-tensors go to the plain version; CUDA tensors launch the kernel or raise.
-All three outputs of the two are bit-identical, the float one included:
-both take the min over the very d² values the hit test compared.
+Three parts, as in ``csr_sweep.py``: the CUDA kernel (``csrc/csr_sweep.cu``:
+``csr_sweep``'s box pass, cull pass and persistent sweep of the runs that
+come within ε of the query tile's box, with a third output that the sweep
+folds as ``atomicMin`` on the bits of d², exact for the non-negative,
+non-NaN d² of a hit), its wrapper, and the plain PyTorch version. The
+runs the kernel keeps are ``csr_sweep.kept_runs_plain`` of the same
+inputs. CPU tensors go to the plain version; CUDA tensors launch the kernel
+or raise. All three outputs of the two are bit-identical, the float one
+included: both take the min over the very d² values the hit test compared,
+and a skipped run holds no hit.
 """
 from __future__ import annotations
 
 import torch
 
 from . import build
-from .csr_sweep import _check, _cuda_or_raise, _eps2_f32, _sweep_plain
+from .csr_sweep import (_check, _cuda_or_raise, _eps2_f32, _scratch,
+                        _sweep_plain)
 
 # Launches since the last reset_launches(); the plain version never counts.
 LAUNCHES = {"cross_sweep": 0}
@@ -79,6 +84,8 @@ def cross_sweep(queries, cands_planar, croot, starts_blk, nblk, eps2, *,
                                  nblk, eps2, max_blocks=max_blocks,
                                  block_k=block_k)
     _cuda_or_raise(queries, "cross_sweep")
+    # fresh outputs each call: the kernel's cull pass sets them to 0,
+    # INT32_MAX and +inf, then its sweep adds and mins into them
     counts = torch.empty(queries.shape[0], dtype=torch.int32,
                          device=queries.device)
     minroot = torch.empty_like(counts)
@@ -86,10 +93,13 @@ def cross_sweep(queries, cands_planar, croot, starts_blk, nblk, eps2, *,
                         device=queries.device)
     if starts_blk.shape[0] == 0:
         return counts, minroot, mind2
-    build.launch("csr_sweep", "cross_sweep_launch", "pppppfiiiiippp",
+    run, boxes, items, counters = _scratch(
+        queries, cands_planar, starts_blk, max_blocks=max_blocks,
+        block_k=block_k)
+    build.launch("csr_sweep", "cross_sweep_launch", "pppppfiiiiiipppppp",
                  "cross_sweep", queries.device, queries, cands_planar, plane,
                  starts_blk, nblk, _eps2_f32(eps2), starts_blk.shape[0],
-                 block_q, cands_planar.shape[1], max_blocks, block_k, counts,
-                 minroot, mind2)
+                 block_q, cands_planar.shape[1], max_blocks, block_k, run,
+                 counts, minroot, mind2, boxes, items, counters)
     LAUNCHES["cross_sweep"] += 1
     return counts, minroot, mind2

@@ -10,18 +10,23 @@ caller never syncs the host to learn it. Entries of ``active`` at or past
 ``n_active`` repeat the last live tile id (0 when none), the reference's
 park contract (``core.grid.compact_tiles``).
 
-Three parts, as in ``csr_sweep.py``: the CUDA kernel
-(``csrc/csr_sweep.cu``, ``frontier_sweep_kernel``: one thread block per
-slot, parked slots return at once), its wrapper, and the plain PyTorch
-version. CPU tensors go to the plain version; CUDA tensors launch the
-kernel or raise. Integer outputs of the two are bit-identical.
+Three parts, as in ``csr_sweep.py``: the CUDA kernel (``csrc/csr_sweep.cu``:
+``csr_sweep``'s box pass, a cull pass with one block per slot that reads
+``n_active`` and ``active[i]`` itself and keeps the runs of tile
+``active[i]``'s slab that come within ε of its box, and the persistent
+sweep of the kept runs into slot ``i``'s rows), its wrapper, and the plain
+PyTorch version. :func:`kept_runs_plain` gives the runs the kernel keeps.
+CPU tensors go to the plain version; CUDA tensors launch the kernel or
+raise. Integer outputs of the two are bit-identical.
 """
 from __future__ import annotations
 
 import torch
 
 from . import build
-from .csr_sweep import _check, _cuda_or_raise, _eps2_f32, _sweep_plain
+from . import csr_sweep as _csr
+from .csr_sweep import (_check, _cuda_or_raise, _eps2_f32, _scratch,
+                        _sweep_plain)
 from .ref import INT_MAX
 
 # Launches since the last reset_launches(); the plain version never counts.
@@ -68,6 +73,26 @@ def frontier_sweep_plain(queries, cands_planar, croot, starts_blk, nblk,
     return minroot
 
 
+def kept_runs_plain(queries, cands_planar, starts_blk, nblk, active,
+                    n_active, eps2, *, max_blocks: int, block_k: int = 512):
+    """(T, max_blocks · block_k / G) bool: the runs the kernel sweeps for
+    slot ``i``, those of ``csr_sweep.kept_runs_plain`` for tile
+    ``active[i]`` when ``i < n_active``, none for a parked slot."""
+    T = starts_blk.shape[0]
+    block_q = queries.shape[0] // T if T else 0
+    na = min(max(int(n_active.reshape(-1)[0]), 0), T)
+    kept = torch.zeros((T, max_blocks * (block_k // _csr.run_width(block_k))),
+                       dtype=torch.bool, device=queries.device)
+    if na == 0:
+        return kept
+    tiles = active[:na].long()
+    kept[:na] = _csr.kept_runs_plain(
+        queries.reshape(T, block_q, 3)[tiles].reshape(-1, 3), cands_planar,
+        starts_blk[tiles], nblk[tiles], eps2, max_blocks=max_blocks,
+        block_k=block_k)
+    return kept
+
+
 def frontier_sweep(queries, cands_planar, croot, starts_blk, nblk, active,
                    n_active, eps2, *, max_blocks: int, block_q: int = 256,
                    block_k: int = 512):
@@ -93,14 +118,21 @@ def frontier_sweep(queries, cands_planar, croot, starts_blk, nblk, active,
                                     nblk, active, n_active, eps2,
                                     max_blocks=max_blocks, block_k=block_k)
     _cuda_or_raise(queries, "frontier_sweep")
+    # fresh each call: the cull pass sets it to INT32_MAX, then the sweep
+    # folds into the live slots' rows
     minroot = torch.empty(queries.shape[0], dtype=torch.int32,
                           device=queries.device)
     if T == 0:
         return minroot
-    build.launch("csr_sweep", "frontier_sweep_launch", "pppppppfiiiiip",
+    # the list has room for every segment of every slot's slab; the kernel
+    # counts the items on the device
+    run, boxes, items, counters = _scratch(
+        queries, cands_planar, starts_blk, max_blocks=max_blocks,
+        block_k=block_k)
+    build.launch("csr_sweep", "frontier_sweep_launch", "pppppppfiiiiiipppp",
                  "frontier_sweep", queries.device, queries, cands_planar,
                  croot, starts_blk, nblk, active, n_active, _eps2_f32(eps2),
-                 T, block_q, cands_planar.shape[1], max_blocks, block_k,
-                 minroot)
+                 T, block_q, cands_planar.shape[1], max_blocks, block_k, run,
+                 minroot, boxes, items, counters)
     LAUNCHES["frontier_sweep"] += 1
     return minroot

@@ -21,3 +21,9 @@ def _clear_jax_caches_between_modules():
     import jax
     jax.clear_caches()
     gc.collect()
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: runs a CUDA kernel of repro_torch on the card; "
+        "skips, with its reason, where torch sees no CUDA device")
