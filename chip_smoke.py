@@ -6,8 +6,9 @@
 Drives the port's paths on the card and exits non-zero on any failure.
 Paths: batch DBSCAN on the grid engine with the ``device`` round driver
 (the main path) and with the ``frontier`` driver, on the ``grid-hash``
-engine, on the ``brute`` engine, on the wavefront BVH engine (``bvh``)
-with the ``device`` and ``frontier`` drivers, on the stack BVH engine
+engine (``hash_sweep``), on the ``brute`` engine, on the wavefront BVH
+engine (``bvh``, ``bvh_level``) with the ``device`` and ``frontier``
+drivers, on the stack BVH engine
 (``bvh-stack``) and through the FDBSCAN baseline with its early exit
 (``fdbscan``); and single-session serving (``serve``: ``build_snapshot``,
 ``assign``, ``ServeSession.ingest`` with compaction, snapshot save and
@@ -40,7 +41,17 @@ load). Phases:
      bf16 and widened, both payload modes, payload inputs absent without),
      pairs at d² = ε², queries a fraction of a bf16 ulp either side of a
      box edge, dead entries, and 64 seeded slices of the widest level of
-     the full-size roadnet2d exact traversal;
+     the full-size roadnet2d exact traversal (gathered_sweep and
+     bvh_batch_sweep no longer run on any path: each is the A side of the
+     kernel that replaced it); hash_sweep against its plain version and
+     the gathered_sweep path on grid-hash engines at n = 20,000
+     (roadnet2d, iono3d, skewed2d), on a table of 64 buckets (aliased
+     windows) and on 2-D and 3-D 1/8 lattices at d² = ε² and the float
+     below; bvh_level at n = 20,000 (D = 2 and 3): exact, terminated,
+     overflowing and stop-at-overflow traversals with bf16 and f32 boxes,
+     every level against bvh_level_plain (counts, minroot, the next
+     frontier, live counts, overflow, histogram) and every traversal
+     against the bvh_batch_sweep loop;
   4. whole path at n = 20,000 (roadnet2d, iono3d at the full-size ε and
      minPts, where it is all noise, and iono3d at ε = 4.0, minPts = 16,
      where it clusters and hooks), every path:
@@ -64,9 +75,13 @@ load). Phases:
      identical to dbscan on the concatenation), save and load, assign
      again (identical). The bvh paths also print the calibrated spec
      (probes, capacity, peak), the level histogram of the exact sweep and
-     the seconds of bvh_batch_sweep inside each sweep (CUDA events);
+     the ms of bvh_level inside each sweep (CUDA events);
      fdbscan's stage-1 counts are clipped at minPts, so its counts are held
-     to min(counts, minPts);
+     to min(counts, minPts). After each dataset's runs, outside them: every
+     hash_sweep call of the grid-hash run against its plain version and
+     the gathered_sweep path, and an exact and a terminated traversal with
+     the run's final payload, every level against bvh_level_plain and the
+     outputs against the bvh_batch_sweep loop;
   6. kernel times at the full-size shapes of each kernel's path (median of
      5 launches, CUDA events), beside the plain version's time and the
      least time the card could take (bound; for the four slab sweeps that
@@ -75,9 +90,18 @@ load). Phases:
      them the kept pairs' time at the unfused FP32 issue rate; for the csr
      sweeps also the operations bound at the slab's pairs and at what
      G = 64 would keep; for pairwise_sweep its FP32 issue-rate floor over
-     every pair); morton_encode on the bvh
-     build's own input, bvh_batch_sweep at the widest level of the exact
-     sweep and summed over the sweep.
+     every pair); morton_encode on the bvh build's own input; hash_sweep
+     on one sweep of the grid-hash run (its bounds: its inputs read once
+     and its occupied pairs; beside them the padded windows' bytes, the
+     slots as read and the issue rate), with gathered_sweep per chunk
+     and the gathered_sweep path's whole sweep beside it; bvh_level at
+     the widest level of the exact sweep and per level (median of 5
+     sweeps), the exact sweep's host time, torch.profiler split, blocking
+     host reads (torch.cuda's sync debug mode) and waits for an earlier
+     level's count, its bytes bound and the per-entry kernel's, with
+     bvh_batch_sweep at the widest level and its whole level loop beside
+     it. Rows 7 and 8 of the kernels line carry those A-side numbers
+     under ``previous``.
 
 Before the last line it prints one ``{"kernels": [...]}`` JSON line; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -127,13 +151,13 @@ SUBSET = 64      # tiles (chunks) of the full-size layouts for plain versions
 
 # dbscan options of each path (``early_exit``: the FDBSCAN baseline's run
 # instead of dbscan), and the kernels the path must launch
-BVH_KERNELS = ("morton_encode", "bvh_batch_sweep")
+BVH_KERNELS = ("morton_encode", "bvh_level")
 PATHS = {
     "grid/device": (dict(engine="grid", hook_loop="device"),
                     ("csr_sweep_counts", "csr_sweep")),
     "grid/frontier": (dict(engine="grid", hook_loop="frontier"),
                       ("csr_sweep_counts", "frontier_sweep")),
-    "grid-hash": (dict(engine="grid-hash"), ("gathered_sweep",)),
+    "grid-hash": (dict(engine="grid-hash"), ("hash_sweep",)),
     "brute": (dict(engine="brute"), ("pairwise_sweep",)),
     "bvh/device": (dict(engine="bvh", hook_loop="device"), BVH_KERNELS),
     "bvh/frontier": (dict(engine="bvh", hook_loop="frontier"), BVH_KERNELS),
@@ -142,6 +166,11 @@ PATHS = {
                 ("morton_encode",)),
 }
 ENTRIES_PER_SLICE = 2_048   # bvh_batch_sweep parity: entries per slice
+LEVEL_REPS = 5              # exact sweeps timed per level (median)
+# (dataset, n, ε, dims) of the reduced parity of hash_sweep and bvh_level
+# (skewed2d: one dense blob beside a sparse field)
+REDUCED_FUSED = [("roadnet2d", 20_000, 0.02, 2), ("iono3d", 20_000, 4.0, 3),
+                 ("skewed2d", 20_000, 0.02, 2)]
 # serving: build_snapshot (csr_sweep_counts, frontier_sweep), assign
 # (cross_sweep), ingest (cross_sweep, pairwise_sweep), compaction (a
 # build_snapshot)
@@ -161,15 +190,18 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
                        "src/repro/kernels/frontier_sweep.py:65"),
     "pairwise_sweep": ("src/repro_torch/csrc/csr_sweep.cu",
                        "src/repro/kernels/pairwise_sweep.py:68"),
-    "gathered_sweep": ("src/repro_torch/csrc/gathered_sweep.cu",
-                       "src/repro/kernels/gathered_sweep.py:55"),
+    "hash_sweep": ("src/repro_torch/csrc/gathered_sweep.cu",
+                   "src/repro/kernels/gathered_sweep.py:55"),
     "cross_sweep": ("src/repro_torch/csrc/csr_sweep.cu",
                     "src/repro/kernels/cross_sweep.py:94"),
     "morton_encode": ("src/repro_torch/csrc/bvh_sweep.cu",
                       "src/repro/kernels/morton.py:50"),
-    "bvh_batch_sweep": ("src/repro_torch/csrc/bvh_sweep.cu",
-                        "src/repro/kernels/bvh_sweep.py:79"),
+    "bvh_level": ("src/repro_torch/csrc/bvh_sweep.cu",
+                  "src/repro/kernels/bvh_sweep.py:79"),
 }
+# the kernels that the redesigned rows 7 and 8 replaced on every path; their
+# parity phases and times stay, as each new kernel's A side
+PREVIOUS = {"hash_sweep": "gathered_sweep", "bvh_level": "bvh_batch_sweep"}
 
 
 class SmokeFailure(Exception):
@@ -212,7 +244,7 @@ class Env:
         import repro_torch
         from repro_torch import serve
         from repro_torch.baselines import fdbscan
-        from repro_torch.core import bvh, neighbors
+        from repro_torch.core import bvh, grid, neighbors
         from repro_torch.kernels import (build, bvh_sweep, cross_sweep,
                                          csr_sweep, frontier_sweep,
                                          gathered_sweep, morton, ops,
@@ -224,6 +256,7 @@ class Env:
         self.pairwise, self.gathered = pairwise_sweep, gathered_sweep
         self.cross, self.serve, self.snapshot = cross_sweep, serve, snapshot
         self.nb, self.bvh, self.fdbscan = neighbors, bvh, fdbscan
+        self.grid = grid
         self.bvhk, self.morton = bvh_sweep, morton
         self.modules = (csr_sweep, frontier_sweep, pairwise_sweep,
                         gathered_sweep, cross_sweep, morton, bvh_sweep)
@@ -837,7 +870,7 @@ def parity_bvh(E, road):
               bool((mr[rows] == INT_MAX).all()),
               "a dead entry hit or pushed")
     # 64 seeded slices of the widest level of the full-size exact sweep
-    level, live, calls = road["bvh_level"]
+    level, live, calls = road["bvh_batch_level"]
     kw = calls[0][1]
     args = [None if calls[0][0][i] is None else
             t.cat([a[i] for a, _ in calls]) for i in range(8)] + \
@@ -857,6 +890,210 @@ def parity_bvh(E, road):
         f"roadnet2d {len(starts)} slices of {w} entries of level {level} "
         f"(the widest: {live} live entries, {n_e} kernel entries) of the "
         "exact traversal: bit-identical")
+
+
+def hash_args(eng, core, root):
+    """hash_sweep's inputs for a grid-hash engine and a payload."""
+    st, g = eng.state, eng.state.grid
+    return (st.points, g.order, st.buckets, st.cell_valid, g.points, g.index,
+            st.occupancy, core, root)
+
+
+def hash_sweep_a(E, args, eps2):
+    """The A side of hash_sweep: its plain version's padded windows through
+    the gathered_sweep kernel (the grid-hash sweep before hash_sweep)."""
+    return E.gathered.sweep_windows(E.gathered.gathered_sweep, *args, eps2)
+
+
+def compare_hash(E, args, eps2, what: str):
+    """hash_sweep against its plain version and its A side on the same
+    tensors, both outputs bit for bit; returns the kernel's."""
+    k = E.gathered.hash_sweep(*args, eps2)
+    p = E.gathered.hash_sweep_plain(*args, eps2)
+    a = hash_sweep_a(E, args, eps2)
+    for i, w in enumerate(("counts", "minroot")):
+        same(E, f"hash_sweep {w} ({what})", k[i], p[i])
+        same(E, f"hash_sweep {w} vs the gathered_sweep path ({what})", k[i],
+             a[i])
+    return k
+
+
+def _payload(E, n, seed):
+    """A seeded payload: core (n,) bool, root (n,) int32."""
+    rng = np.random.default_rng(seed)
+    return (E.tensor(rng.uniform(size=n) < 0.5),
+            E.tensor(rng.integers(0, n, n).astype(np.int32)))
+
+
+def parity_hash(E):
+    """hash_sweep on the reduced datasets, on a table of 64 buckets (every
+    window aliased), and on 1/8 lattices at d² = ε² and the float below."""
+    t = E.torch
+    for name, n, eps, _ in REDUCED_FUSED:
+        pts = E.tensor(E.repro_torch.synth.load(name, n, seed=0))
+        eng = E.repro_torch.make_engine(pts, eps, engine="grid-hash")
+        compare_hash(E, hash_args(eng, *_payload(E, n, 1)), float(eps) ** 2,
+                     f"{name} n={n}")
+    pts = E.repro_torch.synth.load("roadnet2d", 2_000, seed=1)
+    spec = E.grid.plan_grid(pts, 0.05, dims=2, max_table_size=64)
+    eng = E.repro_torch.make_engine(pts, 0.05, engine="grid-hash", spec=spec)
+    aliased = int((~eng.state.cell_valid).sum())
+    check(aliased > 0, "no aliased bucket in a table of 64")
+    compare_hash(E, hash_args(eng, *_payload(E, 2_000, 2)), 0.05 ** 2,
+                 "H = 64")
+    rng = np.random.default_rng(3)
+    for dims in (2, 3):
+        q = rng.integers(0, 33, (3_000, 3)).astype(np.float32) / 8
+        if dims == 2:
+            q[:, 2] = 0
+        eng = E.repro_torch.make_engine(q, 3 / 8, engine="grid-hash",
+                                        dims=dims)
+        d2 = ((q[:300, None, :] - q[None, :, :]) ** 2).sum(-1)
+        check((d2 == np.float32(9 / 64)).any(), "no pair at d² = ε²")
+        for eps2 in EQ_BELOW:
+            k = compare_hash(E, hash_args(eng, *_payload(E, 3_000, 4)), eps2,
+                             f"{dims}-D lattice, ε² = {eps2}")
+            check(t.equal(k[0][:300].cpu(), t.as_tensor(
+                (d2 <= np.float32(eps2)).sum(1).astype(np.int32))),
+                "lattice counts differ from a numpy count")
+    log(f"  hash_sweep: {', '.join(f'{a} n={b}' for a, b, _, _ in REDUCED_FUSED)}"
+        f", a table of 64 buckets ({aliased} aliased window cells), 2-D and "
+        "3-D 1/8 lattices at d² = ε² and the float below: bit-identical to "
+        "the plain version and to the gathered_sweep path")
+
+
+class LevelChecker:
+    """While active, every bvh_level launch also runs the plain version on
+    a copy of the state it was given, and the two must agree bit for bit:
+    counts, minroot, the next frontier (its entries that the level wrote),
+    the live counts, the overflow flag and the histogram. Per level it
+    records the live parents, the distinct query blocks they read, their
+    leaf and internal children and the pushes (for the bytes bound), and
+    the plain version's ms (CUDA events)."""
+
+    def __init__(self, E):
+        self.E, self.levels = E, []
+
+    def __enter__(self):
+        E, t = self.E, self.E.torch
+        self.real = E.bvhk.bvh_level
+
+        def level(inputs, state, lvl, eps2, **kw):
+            plain = E.bvhk.LevelState._make(
+                None if x is None else x.clone() for x in state)
+            n_live = int(state.nlive[lvl])
+            n_int = inputs.pts.shape[0] - 1
+            fn = state.fn[lvl % 2, :n_live].long()
+            leaves = int((inputs.left[fn] >= n_int).sum()
+                         + (inputs.right[fn] >= n_int).sum())
+            blocks = state.fb[lvl % 2, :n_live].unique().numel()
+            self.real(inputs, state, lvl, eps2, **kw)
+            a, b = (t.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
+            E.bvhk.bvh_level_plain(inputs, plain, lvl, eps2, **kw)
+            b.record()
+            nxt = int(plain.nlive[lvl + 1])
+            wrote = state.fb.shape[1] if kw.get("stop_on_overflow") and \
+                bool(plain.overflow[0]) and nxt == 0 else nxt
+            dst = (lvl + 1) % 2
+            outs = {f: (getattr(state, f), getattr(plain, f)) for f in
+                    ("counts", "minroot", "nlive", "overflow", "hist")}
+            outs.update({f: (getattr(state, f)[dst, :wrote],
+                             getattr(plain, f)[dst, :wrote])
+                         for f in ("fb", "fn")})
+            err = max_err(*zip(*outs.values()))
+            for f, (k, p) in outs.items():
+                same(E, f"bvh_level {f} (level {lvl})", k, p)
+            if n_live:
+                self.levels.append(dict(
+                    level=lvl, parents=n_live, blocks=blocks, leaves=leaves,
+                    internal=2 * n_live - leaves, pushes=nxt,
+                    plain_ms=a.elapsed_time(b), err=err))
+
+        E.bvhk.bvh_level = level
+        return self
+
+    def __exit__(self, *exc):
+        self.E.bvhk.bvh_level = self.real
+
+
+def level_bytes(lv, *, batch, dims, box_bytes, payload: bool,
+                per_entry_queries: bool = False) -> int:
+    """Bytes one fused level must move: per parent entry its frontier ids
+    (8) and its children's ids (8); each distinct query block it reads
+    once (4·B·D), and in payload mode its bounds (4·B); per internal child
+    its box (2·box_bytes·D) and in payload mode its payload min (4); per
+    leaf child its point and payload (4·D + 4); 8 per push written. With
+    ``per_entry_queries`` the query block (and bounds) count once per
+    parent entry instead, as the per-entry kernel reads them."""
+    per_block = 4 * batch * dims + (4 * batch if payload else 0)
+    reads = lv["parents"] if per_entry_queries else lv["blocks"]
+    per_internal = 2 * box_bytes * dims + (4 if payload else 0)
+    return (16 * lv["parents"] + reads * per_block
+            + lv["internal"] * per_internal
+            + lv["leaves"] * (4 * dims + 4) + 8 * lv["pushes"])
+
+
+def check_fused_sweep(E, tree, croot, what: str, **kw):
+    """One traversal by the fused level, every level held to its plain
+    version (LevelChecker), and its outputs to the per-entry kernel's
+    level loop (the A side): counts, minroot, overflow and histogram.
+    Returns the checker's levels."""
+    with LevelChecker(E) as chk:
+        f = E.bvh.wavefront_sweep_fused(tree, tree.pts_sorted, croot, **kw)
+    a = E.bvh.wavefront_sweep_plain(tree, tree.pts_sorted, croot, **kw)
+    for w, x, y in zip(("counts", "minroot", "hist"), (f[0], f[1], f[3]),
+                       (a[0], a[1], a[3])):
+        same(E, f"bvh_level traversal {w} vs the bvh_batch_sweep loop "
+             f"({what})", x, y)
+    check(f[2] == a[2], f"bvh_level traversal overflow {f[2]} != {a[2]} "
+          f"({what})")
+    return chk.levels, f[2]
+
+
+def bvh_cases(E, eng, croot, bound):
+    """(label, keywords) of the traversals held to the A side on a built
+    bvh engine: exact, terminated, an overflowing capacity, and a probe
+    that stops at the overflow."""
+    spec = eng.meta
+    kw = dict(eps=spec.eps, eps2=spec.eps ** 2, capacity=spec.capacity,
+              tile=spec.tile, batch=spec.batch, prune_dtype=spec.prune_dtype,
+              max_levels=spec.max_levels)
+    small = max(spec.capacity // 4 // spec.tile, 1) * spec.tile
+    return [("exact", kw), ("terminated", dict(kw, bound=bound)),
+            ("capacity / 4", dict(kw, capacity=small)),
+            ("probe at capacity / 4", dict(kw, capacity=small,
+                                           stop_on_overflow=True))]
+
+
+def parity_bvh_level(E):
+    """The fused traversal on the reduced datasets (D = 2 and 3), each level
+    against bvh_level_plain and the whole against the bvh_batch_sweep
+    loop: exact, terminated, overflowing and stopping at the overflow,
+    with bf16 and f32 prune boxes."""
+    done = []
+    for name, n, eps, dims in REDUCED_FUSED[:2]:
+        pts = E.tensor(E.repro_torch.synth.load(name, n, seed=0))
+        E.bvh._SPEC_CACHE.clear()
+        eng = E.repro_torch.make_engine(pts, eps, engine="bvh")
+        core, root = _payload(E, n, 5)
+        croot = E.ops.fuse_core_root(core, root)
+        bound = E.tensor(np.random.default_rng(6).integers(
+            0, n, n).astype(np.int32))
+        for label, kw in bvh_cases(E, eng, croot, bound):
+            for prune in ("bf16", "f32"):
+                levels, ovf = check_fused_sweep(
+                    E, eng.state.bvh, croot, f"{name} {label} {prune}",
+                    **dict(kw, prune_dtype=prune))
+                done.append((name, label, prune, len(levels), ovf))
+        check(any(o for *_, o in done), "no traversal overflowed")
+    log(f"  bvh_level: {REDUCED_FUSED[0][0]} and {REDUCED_FUSED[1][0]} "
+        f"n={REDUCED_FUSED[0][1]} (D = 2, 3), exact, terminated, capacity / 4"
+        f" and a probe stopping there, bf16 and f32 boxes; every level "
+        f"(counts, minroot, frontier, live counts, overflow, histogram) "
+        f"bit-identical to bvh_level_plain, every traversal to the "
+        f"bvh_batch_sweep loop: (dataset, case, prune, levels, overflow) "
+        f"{done}")
 
 
 class CallRecorder:
@@ -885,10 +1122,9 @@ class CallRecorder:
 class BVHRecorder:
     """While active, records the work of a BVH path: each wavefront sweep
     (host seconds ending in a synchronize, whether it is a calibration
-    probe, its level histogram, its launches per level, and per
-    bvh_batch_sweep launch its entries and a pair of CUDA events around
-    it), and the build's morton_encode input. The events and the
-    synchronizes launch no kernel."""
+    probe, its level histogram, and per bvh_level launch a pair of CUDA
+    events around it), and the build's morton_encode input. The events and
+    the synchronizes launch no kernel."""
 
     def __init__(self, E):
         self.E, self.sweeps = E, []
@@ -897,7 +1133,7 @@ class BVHRecorder:
 
     def __enter__(self):
         E, t = self.E, self.E.torch
-        self.real = (E.bvh.wavefront_sweep, E.bvhk.bvh_batch_sweep)
+        self.real = (E.bvh.wavefront_sweep, E.bvhk.bvh_level)
         real_sweep, real_kernel = self.real
 
         def sweep(*args, **kw):
@@ -908,14 +1144,12 @@ class BVHRecorder:
             t.cuda.synchronize()
             rec["wall"] = time.perf_counter() - t0
             rec["hist"] = out[3].cpu().numpy()
-            # the level loop launches once per `step` entries of a level
-            tile = min(kw.get("tile", 8192), kw["capacity"])
-            step = max(tile, (E.bvh._LEVEL_ENTRIES // tile) * tile)
-            live = rec["hist"][rec["hist"] >= 0]
-            rec["per_level"] = [-(-int(f) // step) for f in live]
-            check(sum(rec["per_level"]) == len(rec["calls"]),
-                  f"{len(rec['calls'])} bvh_batch_sweep launches for levels "
-                  f"{live.tolist()} at {step} entries a launch")
+            # one launch a level, and at most one more that finds the
+            # live count 0 and returns at once
+            levels = int((rec["hist"] >= 0).sum())
+            check(levels <= len(rec["calls"]) <= levels + 1,
+                  f"{len(rec['calls'])} bvh_level launches for {levels} "
+                  "levels")
             return out
 
         def kernel(*args, **kw):
@@ -924,16 +1158,16 @@ class BVHRecorder:
             ev[0].record()
             out = real_kernel(*args, **kw)
             ev[1].record()
-            self.sweeps[-1]["calls"].append((args[0].shape[0], ev))
+            self.sweeps[-1]["calls"].append(ev)
             return out
 
-        E.bvh.wavefront_sweep, E.bvhk.bvh_batch_sweep = sweep, kernel
+        E.bvh.wavefront_sweep, E.bvhk.bvh_level = sweep, kernel
         self.morton_rec.__enter__()
         return self
 
     def __exit__(self, *exc):
         self.morton_rec.__exit__(*exc)
-        self.E.bvh.wavefront_sweep, self.E.bvhk.bvh_batch_sweep = self.real
+        self.E.bvh.wavefront_sweep, self.E.bvhk.bvh_level = self.real
 
     @property
     def morton(self):
@@ -949,42 +1183,42 @@ class BVHRecorder:
         h = next(r["hist"] for r in self.sweeps if not r["probe"])
         return h[h >= 0].tolist()
 
-    def widest_level(self):
-        """(level, live entries, indices of its launches) of the widest
-        level of the last sweep."""
-        r = self.sweeps[-1]
-        level = int(np.argmax(r["hist"]))
-        first = sum(r["per_level"][:level])
-        return (level, int(r["hist"][level]),
-                range(first, first + r["per_level"][level]))
-
     def per_sweep(self) -> list:
-        """Per sweep that is not a probe: host seconds, bvh_batch_sweep ms
-        (CUDA events), launches, entries, levels."""
+        """Per sweep that is not a probe: host seconds, bvh_level ms (CUDA
+        events), launches, parent entries, levels."""
         out = []
         for r in self.sweeps:
             if r["probe"]:
                 continue
+            live = r["hist"][r["hist"] >= 0]
             out.append(dict(
                 wall=r["wall"], launches=len(r["calls"]),
-                kernel_ms=sum(a.elapsed_time(b) for _, (a, b) in r["calls"]),
-                entries=sum(e for e, _ in r["calls"]),
-                levels=int((r["hist"] >= 0).sum())))
+                kernel_ms=sum(a.elapsed_time(b) for a, b in r["calls"]),
+                entries=int(live.sum()), levels=len(live)))
         return out
 
 
-def widest_level_calls(E, run_exact):
-    """Runs ``run_exact`` (one exact wavefront sweep) twice: under a
-    BVHRecorder to find its widest level, then keeping the (args, kw) of
-    each bvh_batch_sweep launch of that level. Returns (level, live
-    entries, launches)."""
-    with BVHRecorder(E) as rec:
-        run_exact()
-    level, live, want = rec.widest_level()
+def widest_level_calls(E, run_plain, kw):
+    """Runs ``run_plain`` (one exact sweep by the per-entry kernel's level
+    loop, ``wavefront_sweep_plain`` with keywords ``kw``) twice: once to
+    find its widest level, then keeping the (args, kw) of each
+    bvh_batch_sweep launch of that level. Returns (level, live entries,
+    launches)."""
+    hist = run_plain()[3].cpu().numpy()
+    live = hist[hist >= 0]
+    tile = min(kw.get("tile", 8192), kw["capacity"])
+    step = max(tile, (E.bvh._LEVEL_ENTRIES // tile) * tile)
+    per_level = [-(-int(f) // step) for f in live]
+    level = int(np.argmax(live))
+    first = sum(per_level[:level])
+    want = range(first, first + per_level[level])
     with CallRecorder(E.bvhk, "bvh_batch_sweep",
                       keep=want.__contains__) as kept:
-        run_exact()
-    return level, live, kept.calls
+        run_plain()
+    check(kept.seen == sum(per_level),
+          f"{kept.seen} bvh_batch_sweep launches for levels {live.tolist()}"
+          f" at {step} entries a launch")
+    return level, int(live[level]), kept.calls
 
 
 def fresh(E, name, n_corpus, m, seed):
@@ -1085,12 +1319,14 @@ def road_layouts(E):
                                              seed=1)
     road["iono_csr"] = (i_args, float(i_eps) ** 2, i_kw, i_info)
     del i_eng
-    # the widest level of the exact wavefront traversal (no payload)
+    # the widest level of the exact wavefront traversal (no payload) by the
+    # per-entry kernel's level loop
     tree = E.bvh.build_bvh(E.tensor(pts), dims=2)
     payload = t.full((n,), INT_MAX, dtype=t.int32, device=E.dev)
-    road["bvh_level"] = widest_level_calls(E, lambda: E.bvh.wavefront_sweep(
-        tree, tree.pts_sorted, payload, eps=eps, eps2=float(eps) ** 2,
-        capacity=1 << 30))
+    kw = dict(eps=eps, eps2=float(eps) ** 2, capacity=1 << 30)
+    road["bvh_batch_level"] = widest_level_calls(
+        E, lambda: E.bvh.wavefront_sweep_plain(tree, tree.pts_sorted, payload,
+                                               **kw), kw)
     return road
 
 
@@ -1103,6 +1339,8 @@ def phase_parity(E):
     parity_cross(E, road)
     parity_morton(E)
     parity_bvh(E, road)
+    parity_hash(E)
+    parity_bvh_level(E)
 
 
 # --------------------------------------------------------------------------
@@ -1441,12 +1679,13 @@ def pair_tests(E, path, eng, rec=None):
     if path == "brute":
         pairs = -(-n // 256) * 256 * (-(-n // 512) * 512)
         return pairs, f"{pairs:.3e} (padded {n} x {n})"
+    st = eng.state
+    pairs = int((st.occupancy[st.buckets.long()] * st.cell_valid).sum(
+        dtype=E.torch.int64))
     width = spec.n_offsets * spec.capacity
-    k_pad = -(-width // 512) * 512
-    pairs = -(-n // 2048) * 2048 * k_pad
-    return pairs, (f"{pairs:.3e} ({-(-n // 2048)} chunks x 2048 x {k_pad}; "
-                   f"window {spec.n_offsets} x {spec.capacity} = {width}; "
-                   f"H {spec.table_size})")
+    return pairs, (f"{pairs:.3e} occupied ({pairs / n:.1f} a query; the "
+                   f"padded window {spec.n_offsets} x {spec.capacity} = "
+                   f"{width} a query; H {spec.table_size})")
 
 
 def log_bvh_run(E, res, eng, rec, wall, min_pts):
@@ -1475,12 +1714,42 @@ def log_bvh_run(E, res, eng, rec, wall, min_pts):
     log(f"    spec: capacity {spec.capacity}, tile {spec.tile}, peak "
         f"{spec.peak}, batch {spec.batch}, prune {spec.prune_dtype}; exact "
         f"sweep levels {rec.exact_levels()}")
-    log(f"    {len(per)} sweeps: {sw_s:.3f} s, bvh_batch_sweep "
+    log(f"    {len(per)} sweeps: {sw_s:.3f} s, bvh_level "
         f"{k_ms:.3f} ms of it ({k_ms / 1e3 / sw_s:.1%}), "
         f"{sum(p['launches'] for p in per)} launches, "
-        f"{sum(p['entries'] for p in per)} entries; per sweep (s, kernel "
-        f"ms, entries, levels): "
+        f"{sum(p['entries'] for p in per)} parent entries; per sweep (s, "
+        f"kernel ms, parent entries, levels): "
         f"{[(round(p['wall'], 4), round(p['kernel_ms'], 3), p['entries'], p['levels']) for p in per]}")
+
+
+def parity_full(E, name, runs):
+    """Outside the counted runs: every hash_sweep call of the grid-hash run
+    against its plain version and the gathered_sweep path; and an exact
+    and a terminated traversal of the bvh/device engine, with the run's
+    final payload, every level against bvh_level_plain and the whole
+    against the bvh_batch_sweep loop."""
+    calls = runs["grid-hash"]["rec"].calls
+    check(len(calls) == runs["grid-hash"]["launches"]["hash_sweep"],
+          f"{len(calls)} hash_sweep calls recorded")
+    for i, (args, kw) in enumerate(calls):
+        compare_hash(E, args[:9], args[9], f"{name} sweep {i}")
+    run = runs["bvh/device"]
+    eng, res = run["eng"], run["res"]
+    order = eng.order.long()
+    croot = E.ops.fuse_core_root(res.core[order], res.labels[order])
+    cases = bvh_cases(E, eng, croot, croot)[:2]
+    levels = {}
+    for label, kw in cases:
+        levels[label], ovf = check_fused_sweep(
+            E, eng.state.bvh, croot, f"{name} {label}", **kw)
+        check(not ovf, f"{name} {label}: overflow at the calibrated capacity")
+    run["levels"] = levels
+    log(f"    {name}: hash_sweep of all {len(calls)} grid-hash sweeps "
+        f"bit-identical to the plain version and the gathered_sweep path; "
+        f"bvh_level: an exact and a terminated traversal ("
+        f"{len(levels['exact'])} and {len(levels['terminated'])} levels), "
+        "every level bit-identical to bvh_level_plain, the outputs to the "
+        "bvh_batch_sweep loop")
 
 
 def phase_full(E):
@@ -1492,7 +1761,9 @@ def phase_full(E):
         ref = None
         for path, (kw, kernels) in PATHS.items():
             is_bvh = kw["engine"].startswith("bvh")
-            rec = BVHRecorder(E) if is_bvh else FrontierRecorder(E)
+            rec = BVHRecorder(E) if is_bvh else \
+                CallRecorder(E.gathered, "hash_sweep") \
+                if path == "grid-hash" else FrontierRecorder(E)
             E.bvh._SPEC_CACHE.clear()     # each bvh build calibrates anew
             t.cuda.synchronize()
             E.reset_launches()
@@ -1547,6 +1818,7 @@ def phase_full(E):
         log(f"    {name}: labels and core identical across {list(PATHS)}, "
             f"counts too (fdbscan's clipped at min_pts); invariants and 4096"
             f" brute-force counts: ok")
+        parity_full(E, name, runs[name])
         runs[name]["serve"] = serve_full(E, name, n, eps, min_pts, pts_np)
     return runs
 
@@ -1592,8 +1864,8 @@ def max_err(k, p) -> int:
 
 def row(kernel, launches, ms, plain_ms, b, err, **extra):
     check(err == 0, f"{kernel}: kernel != plain (max abs err {err})")
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1],
-                max_abs_err=err, launches=launches, **extra)
+    return dict(kernel=kernel, ms=ms, plain_ms=plain_ms, bound_ms=b[0],
+                bound_by=b[1], max_abs_err=err, launches=launches, **extra)
 
 
 def times_csr(E, name, run):
@@ -1739,48 +2011,103 @@ def times_pairwise(E, name, run):
                shape=[nq, nc])
 
 
-def times_gathered(E, name, run, grid_run):
-    """gathered_sweep per chunk at the grid-hash engine's chunk shapes,
-    plain on 64 chunks; and one whole grid-hash sweep (gathers included)
-    beside one whole CSR sweep."""
-    eng, res = run["eng"], run["res"]
-    eps2 = run["eps2"]
-    n_chunks = -(-eng.state.points.shape[0] // 2048)
+def times_gathered(E, name, args):
+    """gathered_sweep (the A side of hash_sweep) per chunk of the grid-hash
+    sweep ``args`` (hash_sweep's inputs), plain on 64 chunks."""
+    eps2 = args[9]
+    n_chunks = -(-args[0].shape[0] // 2048)
     pick = set(np.random.default_rng(3).choice(
         n_chunks, min(SUBSET, n_chunks), replace=False).tolist())
     plain_ms, kern_ms, err, ms = [], [], 0, None
     # one chunk's window at a time: all of them at once would not fit
-    for i, chunk in enumerate(E.nb.hash_window_chunks(
-            eng.state, res.core, res.labels, 2048)):
+    for i, w in enumerate(E.gathered.hash_windows(args[0], *args[2:6],
+                                                  *args[7:9], 2048)):
         if i != n_chunks // 2 and i not in pick:
             continue
-        args = E.ops.gathered_sweep_args(*chunk)
+        cargs = E.gathered.window_args(*w)
         if i == n_chunks // 2:
-            ms = cuda_ms(E, lambda: E.gathered.gathered_sweep(*args, eps2))
-            b, k = args[2].shape
+            ms = cuda_ms(E, lambda: E.gathered.gathered_sweep(*cargs, eps2))
+            b, k = cargs[2].shape
         if i in pick:
             p_ms, p_out = timed_once(
-                E, lambda: E.gathered.gathered_sweep_plain(*args, eps2))
+                E, lambda: E.gathered.gathered_sweep_plain(*cargs, eps2))
             k_ms, k_out = timed_once(
-                E, lambda: E.gathered.gathered_sweep(*args, eps2))
+                E, lambda: E.gathered.gathered_sweep(*cargs, eps2))
             plain_ms.append(p_ms)
             kern_ms.append(k_ms)
             err = max(err, max_err(k_out, p_out))
-        del args, chunk
+        del cargs, w
     nbytes = b * 12 + b * k * 16 + b * 8
+    a_ms = cuda_ms(E, lambda: hash_sweep_a(E, args[:9], eps2), reps=3)
+    return row("gathered_sweep", 0, ms, statistics.mean(plain_ms),
+               bound(b * k, nbytes), err,
+               plain_shapes=f"mean over {len(pick)} chunks of {b} x {k}",
+               ms_on_plain_shapes=statistics.mean(kern_ms),
+               pair_tests=b * k, shape=[b, k], chunks_per_sweep=n_chunks,
+               sweep_ms=a_ms)
+
+
+def times_hash(E, name, run, grid_run):
+    """hash_sweep on one sweep of the grid-hash run with its final payload,
+    beside the plain version (the padded windows, chunk by chunk) on the
+    same inputs, and the bounds: the bytes of its inputs read once and its
+    occupied pairs at 10 operations each (the row's bound), the padded
+    windows' bytes (the gathered_sweep path's), the occupied slots' bytes
+    as read, and the occupied pairs at the unfused FP32 issue rate; beside
+    it gathered_sweep (the A side, the kernel hash_sweep replaced) and one
+    whole sweep of the engine and of the CSR grid."""
+    t = E.torch
+    eng, res = run["eng"], run["res"]
+    eps2 = run["eps2"]
+    args = hash_args(eng, res.core, res.labels)
+    ms = cuda_ms(E, lambda: E.gathered.hash_sweep(*args, eps2))
+    # the visiting order sets which queries share a warp: in the identity
+    # order a warp's queries lie in 32 unrelated windows
+    ident = (args[0], t.arange(args[0].shape[0], dtype=t.int32,
+                               device=E.dev), *args[2:])
+    ident_ms = cuda_ms(E, lambda: E.gathered.hash_sweep(*ident, eps2))
+    plain_ms, p_out = timed_once(
+        E, lambda: E.gathered.hash_sweep_plain(*args, eps2))
+    k_out = E.gathered.hash_sweep(*args, eps2)
+    err = max_err(k_out, p_out)
+    hits = int(k_out[0].sum(dtype=t.int64))
+    del p_out, k_out
+    st, spec = eng.state, eng.meta
+    n, n_off = st.buckets.shape
+    H, C = spec.table_size, spec.capacity
+    occ_win = st.occupancy[st.buckets.long()] * st.cell_valid
+    pairs = int(occ_win.sum(dtype=t.int64))
+    # queries, order, buckets, cell_valid, occupancy, the occupied slots
+    # (point, index) and the payload once; counts and minroot written
+    nbytes = n * (12 + 4 + 5 * n_off + 12 + 4 + 5 + 8) + 4 * H
+    k_pad = -(-(n_off * C) // 512) * 512
+    chunks = -(-n // 2048)
+    padded = chunks * (2048 * 12 + 2048 * k_pad * 16 + 2048 * 8)
+    rate, mhz = fp32_issue_rate(E)
+    issue_ms = pairs * FP32_INSTR_PER_PAIR / rate * 1e3
     sweep_ms = cuda_ms(E, lambda: eng.sweep(eng.state, res.core, res.labels),
                        reps=3)
     g = grid_run["eng"]
     order = g.state.order.long()
     croot = E.ops.fuse_core_root(res.core[order], res.labels[order])
     csr_ms = cuda_ms(E, lambda: g.sweep_sorted(g.state, croot), reps=3)
-    return row("gathered_sweep", run["launches"]["gathered_sweep"], ms,
-               statistics.mean(plain_ms), bound(b * k, nbytes), err,
-               plain_shapes=f"mean over {len(pick)} chunks of {b} x {k}",
-               ms_on_plain_shapes=statistics.mean(kern_ms),
-               pair_tests=b * k, shape=[b, k], chunks_per_sweep=n_chunks,
-               kernel_ms_per_sweep=ms * n_chunks,
-               grid_hash_sweep_ms=sweep_ms, csr_sweep_ms=csr_ms)
+    prev = times_gathered(E, name, args + (eps2,))
+    log(f"  {name} hash_sweep: {pairs:.4e} occupied pairs ({pairs / n:.1f} a "
+        f"query; the padded windows {chunks * 2048 * k_pad:.4e}), "
+        f"{hits:.4e} hits; bounds: inputs once "
+        f"{nbytes / PEAK_BYTES * 1e3:.4f} ms, occupied pairs at 67 TFLOP/s "
+        f"{pairs * OPS_PER_PAIR / PEAK_FP32_OPS * 1e3:.4f} ms, at the FP32 "
+        f"issue rate ({FP32_INSTR_PER_PAIR} a pair, {rate:.4e}/s at "
+        f"{mhz:.0f} MHz) {issue_ms:.4f} ms, the slots as read (12 B a pair) "
+        f"{pairs * 12 / PEAK_BYTES * 1e3:.4f} ms, the padded windows "
+        f"{padded / PEAK_BYTES * 1e3:.4f} ms; hash_sweep {ms:.4f} ms in the "
+        f"bucket-major order, {ident_ms:.4f} ms in the identity order")
+    return row("hash_sweep", run["launches"]["hash_sweep"], ms, plain_ms,
+               bound(pairs, nbytes), err, plain_shapes="full (one sweep)",
+               occupied_pairs=pairs, hits=hits, queries=n, window=n_off,
+               table=[H, C], padded_pairs=chunks * 2048 * k_pad,
+               grid_hash_sweep_ms=sweep_ms, csr_sweep_ms=csr_ms,
+               identity_order_ms=ident_ms, previous=prev)
 
 
 def slab_pairs(nblk, block_k: int, block_q: int) -> int:
@@ -1831,6 +2158,8 @@ def times_cross(E, name, run):
           f"plain (max abs err {d2_err})")
     err = max(max_err(k_out[:2], p_out[:2]), d2_err)
     a, i = out["assign"], out["ingest"]
+    log(f"  {name} cross_sweep: ingest cross query bound "
+        f"{bound(i['kept_pairs'], i['nbytes'])[0]:.4f} ms")
     return row("cross_sweep", run["launches"]["cross_sweep"], a["ms"],
                plain_ms, bound(a["kept_pairs"], a["nbytes"]), err,
                plain_shapes=f"{SUBSET} query tiles of the assign",
@@ -1839,8 +2168,7 @@ def times_cross(E, name, run):
                queries=a["queries"], max_nblk=a["max_nblk"],
                ingest_ms=i["ms"], ingest_queries=i["queries"],
                ingest_pair_tests=i["pairs"],
-               ingest_kept_pair_tests=i["kept_pairs"],
-               ingest_bound_ms=bound(i["kept_pairs"], i["nbytes"])[0])
+               ingest_kept_pair_tests=i["kept_pairs"])
 
 
 def sweep_bytes(calls) -> int:
@@ -1893,11 +2221,14 @@ def profile_device(E, fn):
     return wall, sorted(rows, key=lambda r: -r[1])
 
 
-# substrings of the device kernels of a wavefront sweep, by part: ours,
-# the gathers that feed it, and the scatters of its results
-SWEEP_PARTS = {"kernel": ("bvh_batch_sweep",),
+# substrings of the device kernels of a wavefront sweep, by part: ours
+# (the fused level, or the per-entry kernel), the gathers that feed the
+# per-entry kernel, the scatters of its results, and copies and fills (the
+# fused loop's bound snapshots and count copies, the buffers it zeroes)
+SWEEP_PARTS = {"kernel": ("bvh_level", "bvh_batch_sweep"),
                "gather": ("gather_kernel", "index_elementwise"),
-               "scatter": ("indexFunc", "scatter_gather")}
+               "scatter": ("indexFunc", "scatter_gather"),
+               "copy": ("Memcpy", "Memset", "FillFunctor")}
 
 
 def profile_split(wall, rows) -> dict:
@@ -1913,15 +2244,108 @@ def profile_split(wall, rows) -> dict:
     return out
 
 
+def log_profile(E, what, name, wall, rows):
+    """Logs a traced sweep's split; returns it (None without device time)."""
+    if not rows:
+        log(f"    bvh {what} @ {name}, torch.profiler: no device time in "
+            "the trace (not measured)")
+        return None
+    v = profile_split(wall, rows)
+    log(f"    bvh {what} @ {name}, torch.profiler: host {wall * 1e3:.3f} ms,"
+        f" device busy {v['busy_ms']:.3f} ms ({v['busy_share']:.1%}): "
+        f"kernel {v['kernel_ms']:.3f}, gathers {v['gather_ms']:.3f}, "
+        f"scatters {v['scatter_ms']:.3f}, copies and fills "
+        f"{v['copy_ms']:.3f}, other {v['other_ms']:.3f} ms")
+    log(f"    bvh {what} @ {name}, device kernels (name, ms, launches): "
+        + json.dumps(rows))
+    return v
+
+
+def count_host_reads(E, fn):
+    """(blocking host reads, waits for an earlier level's count) of one
+    call of ``fn``: the reads (file:line of each) are the synchronizing
+    operations that
+    torch.cuda's sync debug mode reports (a read of a device value, a
+    nonzero, a copy from pageable memory); the waits are those of the
+    fused loop's count reader (bvh._LevelCounts.waits), which the mode
+    does not see."""
+    import warnings
+    t = E.torch
+    readers = []
+    real = E.bvh._LevelCounts
+
+    class Counting(real):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            readers.append(self)
+
+    t.cuda.synchronize()
+    E.bvh._LevelCounts = Counting
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            t.cuda.set_sync_debug_mode("warn")
+            try:
+                fn()
+            finally:
+                t.cuda.set_sync_debug_mode("default")
+    finally:
+        E.bvh._LevelCounts = real
+    t.cuda.synchronize()
+    reads = [f"{Path(w.filename).name}:{w.lineno}" for w in caught
+             if "synchronizing CUDA operation" in str(w.message)]
+    return reads, sum(r.waits for r in readers)
+
+
+class LaunchEvents(CallRecorder):
+    """While active, a pair of CUDA events around every call of
+    ``module.attr`` (launching nothing of their own)."""
+
+    def __init__(self, E, module, attr: str):
+        super().__init__(module, attr)
+        self.torch = E.torch
+
+    def __enter__(self):
+        def timed(*args, **kw):
+            ev = (self.torch.cuda.Event(enable_timing=True),
+                  self.torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            out = self.real(*args, **kw)
+            ev[1].record()
+            self.calls.append((args, ev))
+            return out
+        setattr(self.module, self.attr, timed)
+        return self
+
+    def ms(self) -> list:
+        return [a.elapsed_time(b) for _, (a, b) in self.calls]
+
+
+def exact_kw(spec) -> dict:
+    """wavefront_sweep's keywords of an engine's exact sweep."""
+    return dict(eps=spec.eps, eps2=spec.eps ** 2, capacity=spec.capacity,
+                tile=spec.tile, batch=spec.batch,
+                prune_dtype=spec.prune_dtype, max_levels=spec.max_levels)
+
+
 def times_bvh(E, name, run):
-    """bvh_batch_sweep over the launches of the widest level of the
-    bvh/device engine's exact sweep (``sweep_counts``), beside its plain
-    version on the same inputs; and its CUDA-event time summed over the
-    run's stage-1 sweep and over every sweep of the run, beside the sweeps'
-    host seconds."""
-    eng, rec = run["eng"], run["rec"]
-    level, live, calls = widest_level_calls(
-        E, lambda: eng.sweep_counts(eng.state))
+    """bvh_batch_sweep (the A side of bvh_level, the kernel it replaced) over
+    the launches of the widest level of the exact sweep by its level loop
+    (``wavefront_sweep_plain``, payload-free as ``sweep_counts``), beside
+    its plain version on the same inputs; and that whole sweep: its
+    kernel time (CUDA events), host seconds, blocking host reads and
+    torch.profiler split."""
+    t = E.torch
+    eng = run["eng"]
+    tree = eng.state.bvh
+    kw = exact_kw(eng.meta)
+    payload = t.full((tree.pts_sorted.shape[0],), INT_MAX, dtype=t.int32,
+                     device=E.dev)
+
+    def sweep():
+        return E.bvh.wavefront_sweep_plain(tree, tree.pts_sorted, payload,
+                                           **kw)
+    level, live, calls = widest_level_calls(E, sweep, kw)
     _, b, d = calls[0][0][0].shape
     e = sum(a[0].shape[0] for a, _ in calls)
     nbytes = sweep_bytes(calls)
@@ -1933,47 +2357,115 @@ def times_bvh(E, name, run):
               for (a, k), p in zip(calls, p_out))
     n_launches = len(calls)
     del calls, p_out
-    order = eng.order.long()
-    croot = E.ops.fuse_core_root(run["res"].core[order],
-                                 run["res"].labels[order])
-    prof = {"exact sweep": profile_device(
-                E, lambda: eng.sweep_counts(eng.state)),
-            "terminated sweep (final labels)": profile_device(
-                E, lambda: eng.sweep_sorted(eng.state, croot))}
-    split = {}
-    for what, (wall, rows) in prof.items():
-        if not rows:
-            log(f"    bvh {what} @ {name}, torch.profiler: no device time "
-                "in the trace (not measured)")
-            continue
-        split[what] = v = profile_split(wall, rows)
-        log(f"    bvh {what} @ {name}, torch.profiler: host "
-            f"{wall * 1e3:.3f} ms, device busy {v['busy_ms']:.3f} ms "
-            f"({v['busy_share']:.1%}): gathers {v['gather_ms']:.3f}, "
-            f"bvh_batch_sweep {v['kernel_ms']:.3f}, scatters "
-            f"{v['scatter_ms']:.3f}, other {v['other_ms']:.3f} ms")
-        log(f"    bvh {what} @ {name}, device kernels (name, ms, launches): "
-            + json.dumps(rows))
-    per = rec.per_sweep()
-    stage1 = per[0]
-    return row("bvh_batch_sweep", run["launches"]["bvh_batch_sweep"], ms,
-               plain_ms, bound(e * b, nbytes), err,
+    t.cuda.synchronize()
+    with LaunchEvents(E, E.bvhk, "bvh_batch_sweep") as ev:
+        t0 = time.perf_counter()
+        sweep()
+        t.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    entries = sum(a[0].shape[0] for a, _ in ev.calls)
+    reads, _ = count_host_reads(E, sweep)
+    prof = log_profile(E, "exact sweep, bvh_batch_sweep loop", name,
+                       *profile_device(E, sweep))
+    log(f"    bvh_batch_sweep @ {name}: {nbytes / e:.1f} B an entry at the "
+        f"widest level; the exact sweep's {entries} entries at that rate: "
+        f"bound {entries * nbytes / e / PEAK_BYTES * 1e3:.3f} ms")
+    return row("bvh_batch_sweep", 0, ms, plain_ms, bound(e * b, nbytes), err,
                plain_shapes="full (the widest level)", level=level,
                live_entries=live, entries=e, level_launches=n_launches,
-               batch=b, dims=d, exact_sweep_levels=rec.exact_levels(),
-               exact_sweep_kernel_ms=stage1["kernel_ms"],
-               exact_sweep_launches=stage1["launches"],
-               exact_sweep_s=stage1["wall"],
-               exact_sweep_entries=stage1["entries"],
-               bytes_per_entry=nbytes / e,
-               exact_sweep_bound_ms=bound(
-                   stage1["entries"] * b,
-                   round(stage1["entries"] * nbytes / e))[0],
-               profiles=split,
-               run_sweeps=len(per),
+               batch=b, dims=d, exact_sweep_kernel_ms=sum(ev.ms()),
+               exact_sweep_launches=len(ev.calls), exact_sweep_s=wall,
+               exact_sweep_entries=entries,
+               exact_sweep_host_reads=len(reads), profile=prof)
+
+
+def times_bvh_level(E, name, run):
+    """bvh_level at the widest level of the bvh/device engine's exact sweep
+    (``sweep_counts``; median of LEVEL_REPS sweeps, CUDA events), beside
+    its plain version at that level (timed in the full-size parity, on the
+    same inputs), and the bytes bound of the level (``level_bytes``, this
+    run's distinct query blocks, leaf / internal split and pushes); the
+    whole exact sweep: the level kernels' sum, its host and traced device
+    time and split, its blocking host reads and count waits; the run's
+    sweeps; and the per-entry kernel's numbers beside (times_bvh). Logged,
+    not in the row: the sweep's bound with each level's query blocks read
+    once (the row's convention), with the query block read once per
+    parent entry, and at the per-entry kernel's 196 B a child."""
+    t = E.torch
+    eng, rec = run["eng"], run["rec"]
+    spec = eng.meta
+    d = eng.state.bvh.pts_sorted.shape[1]
+    levels = run["levels"]["exact"]
+    box = 2 if spec.prune_dtype == "bf16" else 4
+    nbytes = [level_bytes(lv, batch=spec.batch, dims=d, box_bytes=box,
+                          payload=False) for lv in levels]
+    nbytes_pe = [level_bytes(lv, batch=spec.batch, dims=d, box_bytes=box,
+                             payload=False, per_entry_queries=True)
+                 for lv in levels]
+
+    def sweep():
+        eng.sweep_counts(eng.state)
+    sweep()
+    per_level = []
+    for _ in range(LEVEL_REPS):
+        t.cuda.synchronize()
+        with LaunchEvents(E, E.bvhk, "bvh_level") as ev:
+            sweep()
+            t.cuda.synchronize()
+        ms = ev.ms()
+        check(len(levels) <= len(ms) <= len(levels) + 1,
+              f"{len(ms)} bvh_level launches for {len(levels)} levels")
+        per_level.append(ms[:len(levels)])
+    med = [statistics.median(x) for x in zip(*per_level)]
+    w = int(np.argmax([lv["parents"] for lv in levels]))
+    t.cuda.synchronize()
+    t0 = time.perf_counter()
+    sweep()
+    t.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    reads, waits = count_host_reads(E, sweep)
+    prof = log_profile(E, "exact sweep, fused", name,
+                       *profile_device(E, sweep))
+    children = 2 * sum(lv["parents"] for lv in levels)
+    per_entry = 8 * spec.batch + 4 + 4 * spec.batch * d + 2 * box * d \
+        + 4 * d + 8
+    prev = times_bvh(E, name, run)
+    per = rec.per_sweep()
+    def ms_of(nb):
+        return nb / PEAK_BYTES * 1e3
+    lw = levels[w]
+    log(f"    bvh_level @ {name}: exact sweep {len(levels)} levels, widest "
+        f"{w} ({lw['parents']} parents on {lw['blocks']} query blocks, "
+        f"{lw['leaves']} leaf and {lw['internal']} internal children, "
+        f"{lw['pushes']} pushes); level ms (median of {LEVEL_REPS}) "
+        f"{[round(x, 4) for x in med]}; blocking host reads {len(reads)} "
+        f"({reads}), waits for an earlier level's count {waits} (the "
+        f"per-entry loop: {prev['exact_sweep_host_reads']} reads)")
+    log(f"    bvh_level bounds @ {name}: widest level, query blocks read "
+        f"once {nbytes[w] / lw['parents']:.1f} B a parent entry, "
+        f"{ms_of(nbytes[w]):.4f} ms (the row's bound); query block once "
+        f"per parent entry {nbytes_pe[w] / lw['parents']:.1f} B, "
+        f"{ms_of(nbytes_pe[w]):.4f} ms; exact sweep ({children // 2} "
+        f"parents, {sum(med):.3f} ms of kernel): blocks once a level "
+        f"{ms_of(sum(nbytes)):.3f} ms, once per entry "
+        f"{ms_of(sum(nbytes_pe)):.3f} ms, the per-entry kernel's "
+        f"{per_entry} B a child {ms_of(children * per_entry):.3f} ms")
+    return row("bvh_level", run["launches"]["bvh_level"], med[w],
+               lw["plain_ms"], (ms_of(nbytes[w]), "bytes"),
+               max(lv["err"] for lv in levels),
+               plain_shapes="full (the widest level)", level=w,
+               live_entries=lw["parents"], query_blocks=lw["blocks"],
+               batch=spec.batch, dims=d, exact_sweep_levels=len(levels),
+               exact_sweep_level_ms=med, exact_sweep_kernel_ms=sum(med),
+               exact_sweep_launches=len(per_level[0]),
+               exact_sweep_s=wall, exact_sweep_parents=children // 2,
+               exact_sweep_host_reads=len(reads),
+               exact_sweep_count_waits=waits,
+               profile=prof, run_sweeps=len(per),
                run_kernel_ms=sum(p["kernel_ms"] for p in per),
                run_sweeps_s=sum(p["wall"] for p in per),
-               run_entries=sum(p["entries"] for p in per))
+               run_launches=sum(p["launches"] for p in per),
+               run_parents=sum(p["entries"] for p in per), previous=prev)
 
 
 def phase_times(E, runs):
@@ -1983,11 +2475,11 @@ def phase_times(E, runs):
         per_ds = times_csr(E, name, r["grid/device"])
         per_ds["frontier_sweep"] = times_frontier(E, name, r["grid/frontier"])
         per_ds["pairwise_sweep"] = times_pairwise(E, name, r["brute"])
-        per_ds["gathered_sweep"] = times_gathered(E, name, r["grid-hash"],
-                                                  r["grid/device"])
+        per_ds["hash_sweep"] = times_hash(E, name, r["grid-hash"],
+                                          r["grid/device"])
         per_ds["cross_sweep"] = times_cross(E, name, r["serve"])
         per_ds["morton_encode"] = times_morton(E, name, r["bvh/device"])
-        per_ds["bvh_batch_sweep"] = times_bvh(E, name, r["bvh/device"])
+        per_ds["bvh_level"] = times_bvh_level(E, name, r["bvh/device"])
         for kname, d in per_ds.items():
             # launches: every counted path run of this dataset
             by_path = {p: pr["launches"][kname] for p, pr in r.items()
@@ -1995,42 +2487,55 @@ def phase_times(E, runs):
             d["launches_by_path"] = by_path
             d["launches"] = sum(by_path.values())
             per[kname][name] = d
-            log(f"  {kname} @ {name}: {d['ms']:.3f} ms (bound "
-                f"{d['bound_ms']:.3f} ms by {d['bound_by']}, "
-                f"{d['bound_ms'] / d['ms']:.1%} of bound; plain "
-                f"{d['plain_ms']:.1f} ms on {d['plain_shapes']} shapes"
-                + (f", kernel {d['ms_on_plain_shapes']:.3f} ms there"
-                   if "ms_on_plain_shapes" in d else "") + ")")
-        g = per_ds["gathered_sweep"]
+            for v in (d, d.get("previous")):
+                if v is None:
+                    continue
+                log(f"  {v['kernel']} @ {name}: {v['ms']:.3f} ms (bound "
+                    f"{v['bound_ms']:.3f} ms by {v['bound_by']}, "
+                    f"{v['bound_ms'] / v['ms']:.1%} of bound; plain "
+                    f"{v['plain_ms']:.1f} ms on {v['plain_shapes']} shapes"
+                    + (f", kernel {v['ms_on_plain_shapes']:.3f} ms there"
+                       if "ms_on_plain_shapes" in v else "") + ")")
+        g = per_ds["hash_sweep"]
         f = per_ds["frontier_sweep"]
         log(f"    frontier round 1: {f['live_tiles']} of {f['tiles']} tiles "
             f"live; border call {f['border_ms']:.3f} ms with "
             f"{f['border_live_tiles']} live tiles")
-        log(f"    one sweep @ {name}: grid-hash {g['grid_hash_sweep_ms']:.3f}"
-            f" ms ({g['chunks_per_sweep']} chunks, kernel "
-            f"{g['kernel_ms_per_sweep']:.3f} ms of it), CSR grid "
+        gp = g["previous"]
+        log(f"    one sweep @ {name}: hash_sweep {g['ms']:.3f} ms in one "
+            f"launch ({g['launches']} launches in the run: "
+            f"{g['launches_by_path']}); the engine's whole sweep "
+            f"{g['grid_hash_sweep_ms']:.3f} ms; the gathered_sweep path "
+            f"{gp['sweep_ms']:.3f} ms ({gp['chunks_per_sweep']} chunks, "
+            f"kernel {gp['ms'] * gp['chunks_per_sweep']:.3f} ms of it at "
+            f"its time a chunk); CSR grid "
             f"{g['csr_sweep_ms']:.3f} ms")
         c = per_ds["cross_sweep"]
         log(f"    cross_sweep @ {name}: assign of {c['queries']} queries "
             f"{c['ms']:.3f} ms ({c['pair_tests']:.3e} slab pair tests, "
             f"{c['kept_pair_tests']:.3e} kept, max nblk {c['max_nblk']}); "
             f"ingest cross query of {c['ingest_queries']} "
-            f"{c['ingest_ms']:.3f} ms (bound {c['ingest_bound_ms']:.4f} ms, "
+            f"{c['ingest_ms']:.3f} ms ("
             f"{c['ingest_pair_tests']:.3e} slab pair tests, "
             f"{c['ingest_kept_pair_tests']:.3e} kept); launches by path "
             f"{c['launches_by_path']}")
-        v = per_ds["bvh_batch_sweep"]
-        log(f"    bvh_batch_sweep @ {name}: widest level {v['level']} of the "
-            f"exact sweep, {v['live_entries']} live entries, {v['entries']} "
-            f"kernel entries in {v['level_launches']} launches; exact sweep "
-            f"{v['exact_sweep_s']:.4f} s on the host, "
+        v = per_ds["bvh_level"]
+        vp = v["previous"]
+        log(f"    bvh_level @ {name}: widest level {v['level']} of the exact "
+            f"sweep, {v['live_entries']} live parents, {v['ms']:.3f} ms; "
+            f"exact sweep {v['exact_sweep_s'] * 1e3:.3f} ms on the host, "
             f"{v['exact_sweep_kernel_ms']:.3f} ms of kernel in "
-            f"{v['exact_sweep_launches']} launches (bound "
-            f"{v['exact_sweep_bound_ms']:.3f} ms, "
-            f"{v['exact_sweep_entries']} entries); bvh/device run: "
-            f"{v['run_sweeps']} sweeps, {v['run_sweeps_s']:.3f} s, kernel "
-            f"{v['run_kernel_ms']:.3f} ms, {v['run_entries']} entries; "
-            f"launches by path {v['launches_by_path']}")
+            f"{v['exact_sweep_launches']} launches; blocking host reads "
+            f"{v['exact_sweep_host_reads']}, count waits "
+            f"{v['exact_sweep_count_waits']}; the bvh_batch_sweep loop: "
+            f"{vp['exact_sweep_s'] * 1e3:.3f} ms on the host, "
+            f"{vp['exact_sweep_kernel_ms']:.3f} ms of kernel in "
+            f"{vp['exact_sweep_launches']} launches, "
+            f"{vp['exact_sweep_host_reads']} blocking host reads; bvh/device "
+            f"run: {v['run_sweeps']} sweeps, {v['run_sweeps_s']:.3f} s, "
+            f"kernel {v['run_kernel_ms']:.3f} ms in {v['run_launches']} "
+            f"launches, {v['run_parents']} parent entries; launches by path "
+            f"{v['launches_by_path']}")
         m = per_ds["morton_encode"]
         log(f"    morton_encode @ {name}: {m['points']} points, launches by "
             f"path {m['launches_by_path']}")
@@ -2040,11 +2545,13 @@ def phase_times(E, runs):
 def kernels_line(per) -> dict:
     """The kernels JSON: per-call numbers at the roadnet2d full-size shapes,
     launches summed over every full-size path run on both datasets (per
-    path under ``per_dataset``), every dataset under ``per_dataset``."""
+    path under ``per_dataset``), every dataset under ``per_dataset``. Rows
+    7 and 8 carry the kernel they replaced on the paths under
+    ``previous`` (its own numbers of this run)."""
     out = []
     for kname, rows in per.items():
         head = rows[FULL[0][0]]
-        out.append(dict(
+        entry = dict(
             name=kname, route="cuda", source=KERNELS[kname][0],
             replaces=KERNELS[kname][1],
             launches=sum(r["launches"] for r in rows.values()),
@@ -2052,7 +2559,18 @@ def kernels_line(per) -> dict:
             ms=head["ms"], plain_ms=head["plain_ms"],
             bound_ms=head["bound_ms"], bound_by=head["bound_by"],
             library_ms=None, parity="bit-identical", shapes=FULL[0][0],
-            per_dataset=rows))
+            per_dataset=rows)
+        if kname in PREVIOUS:
+            prev = {ds: r["previous"] for ds, r in rows.items()}
+            entry["previous"] = dict(
+                name=PREVIOUS[kname], source=KERNELS[kname][0],
+                launches=0, ms=prev[FULL[0][0]]["ms"],
+                plain_ms=prev[FULL[0][0]]["plain_ms"],
+                bound_ms=prev[FULL[0][0]]["bound_ms"],
+                bound_by=prev[FULL[0][0]]["bound_by"],
+                max_abs_err=max(r["max_abs_err"] for r in prev.values()),
+                library_ms=None)
+        out.append(entry)
     return {"kernels": out}
 
 

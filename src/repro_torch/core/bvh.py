@@ -9,8 +9,8 @@ Two traversal engines share the structure:
 
   * ``bvh`` — **wavefront** traversal: a level-synchronous frontier of
     (query block, node) entries, each carrying ``batch`` consecutive
-    Morton-sorted queries, expanded level by level through the
-    ``bvh_batch_sweep`` kernel and compacted after every level.
+    Morton-sorted queries, expanded and compacted level by level (on the
+    card one launch of the fused ``bvh_level`` kernel a level).
     Payload-bounded early termination (``terminate=True``) skips any
     subtree whose min core-root payload cannot lower a block's running
     bounds, and the prune can run against outward-rounded bf16 boxes
@@ -27,17 +27,21 @@ The one place where the port departs from the reference's loop structure
 is ``wavefront_sweep``. The reference expands each level in fixed tiles of
 ``tile`` entries inside a device loop, and each tile reads the payload
 bound as the tiles before it left it. The port expands a level's whole
-live frontier in one kernel call (split only to cap memory, at tile
-boundaries), so one host read of the live count per level replaces
-thousands of per-tile launches. Children are laid out in the reference's
-order (per tile, its left children, then its right children), so the
-compacted frontier and the overflow drop are the reference's. An exact
-sweep (``bound=None``) does not depend on the order: its counts, minroot,
-overflow flag and level histogram equal the reference's. In a terminated
-sweep a bound read before the level's updates is only higher, so the pushed
-set lies between the reference's and the exact traversal's: minroot is
-still exactly ``min(exact, bound)`` and the calibrated capacity still fits,
-but the partial counts and the histogram may differ from the reference's
+live frontier at once: on the card in one launch of the fused
+``bvh_level`` kernel, which reads the frontier and its live count on the
+device and compacts its pushes there; on the CPU by the plain level loop,
+in ``ops.bvh_batch_sweep`` calls of at most ``_LEVEL_ENTRIES`` entries
+with one host read of the push count per call. Children are laid out in
+the reference's order (per tile, its left children, then its right
+children), so the compacted frontier and the overflow drop are the
+reference's. An exact sweep (``bound=None``) does not depend on the
+order: its counts, minroot, overflow flag and level histogram equal the
+reference's. In a terminated sweep every push of a level is decided
+against the bounds as they stood when the level started (both loops): a
+bound read before the level's updates is only higher, so the pushed set
+lies between the reference's and the exact traversal's: minroot is still
+exactly ``min(exact, bound)`` and the calibrated capacity still fits, but
+the partial counts and the histogram may differ from the reference's
 (both are prune-order dependent there too, and ``dbscan`` reads neither:
 stage 1 goes through the exact ``sweep_counts``).
 
@@ -52,6 +56,7 @@ Implementation notes (as in the reference):
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import functools
 import hashlib
@@ -61,6 +66,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..kernels import bvh_sweep as _bvhk
 from ..kernels import ops
 from ..kernels.ref import INT_MAX, _dist2, eps2_tensor
 from . import engines
@@ -70,9 +76,13 @@ INT_MIN = -2**31
 STACK = 96          # default stack capacity; the provable need is ≤ 65
 MAX_LEVELS = 72     # BFS level bound: Karras depth ≤ 64, plus margin
 _WAVE_TILE = 8192   # default frontier tile (the reference's expansion step)
-# Frontier entries expanded per kernel call, a multiple of the tile: caps
-# the gathered tensors of one call (about 0.5-1 GB at batch 8).
+# Frontier entries expanded per kernel call of the plain level loop, a
+# multiple of the tile: caps the gathered tensors of one call (about
+# 0.5-1 GB at batch 8).
 _LEVEL_ENTRIES = 1 << 21
+# Levels the fused loop launches past the last live count the host has
+# read (a count of 0 ends the traversal; the levels after it are no-ops).
+_LEVELS_AHEAD = 2
 # Lockstep steps of the stack traversal between host checks for finished
 # queries (which also drops them from the working set).
 _STACK_CHECK = 16
@@ -332,6 +342,201 @@ def _node_payload_min(bvh: BVH, croot_sorted: torch.Tensor) -> torch.Tensor:
     return torch.cat([internal, croot_sorted])
 
 
+def _sweep_setup(bvh: BVH, queries, croot_leaf, *, eps, capacity, tile,
+                 batch, prune_dtype, bound):
+    """What both level loops read: the level inputs, the counts and
+    min-root rows (``bound`` in payload mode, else INT32_MAX), the block
+    count nb, the tile and the capacity C (a multiple of the tile)."""
+    pts = bvh.pts_sorted
+    dev = pts.device
+    d = pts.shape[1]
+    nb = -(-queries.shape[0] // batch)
+    tile = min(tile, capacity)
+    # Queries grouped into nb blocks of `batch`, plus a spare block nb
+    # where dead lanes point: pad queries sit at −BIG (outside every
+    # dilated box, ∞ distance), so they never hit or push; the boxes go to
+    # the kernel as stored (bf16 with the bf16 prune) and widen there.
+    qblocks = ops.pad_to(queries.to(torch.float32), (nb + 1) * batch, 0,
+                         -grid_mod.BIG).reshape(nb + 1, batch, d)
+    node_lo, node_hi = _node_prune_boxes(bvh, eps, prune_dtype)
+    croot_leaf = croot_leaf.to(torch.int32)
+    if bound is not None:
+        node_min = _node_payload_min(bvh, croot_leaf)
+        minroot = ops.pad_to(bound.to(torch.int32), (nb + 1) * batch, 0,
+                             INT_MIN)
+    else:
+        node_min = None
+        minroot = torch.full(((nb + 1) * batch,), INT_MAX, dtype=torch.int32,
+                             device=dev)
+    inputs = _bvhk.LevelInputs(
+        left=bvh.left, right=bvh.right, node_lo=node_lo.contiguous(),
+        node_hi=node_hi.contiguous(), pts=pts.to(torch.float32).contiguous(),
+        croot_leaf=croot_leaf.contiguous(), node_min=node_min,
+        qblocks=qblocks.contiguous())
+    counts = torch.zeros((nb + 1, batch), dtype=torch.int32, device=dev)
+    return (inputs, counts, minroot.reshape(nb + 1, batch), nb, tile,
+            (capacity // tile) * tile)
+
+
+def _plain_level(inputs, counts, minroot, fb, fn, eps2, *, nb, tile, C,
+                 bf16_prune, prune_payload):
+    """One level of the plain loop: every live entry (fb, fn) emits its two
+    children through ``ops.bvh_batch_sweep``, ``_LEVEL_ENTRIES`` entries a
+    call, leaf hits are scattered by block row, and the children that push
+    are compacted in order. Pushes are decided against the bounds as they
+    stood when the level started. Returns the next frontier, truncated to
+    C entries, and whether it was truncated."""
+    n = inputs.pts.shape[0]
+    n_int = n - 1
+    batch = counts.shape[1]
+    step = max(tile, (_LEVEL_ENTRIES // tile) * tile)
+    left, right = inputs.left.long(), inputs.right.long()
+    bound = minroot.clone() if prune_payload else None
+    next_b, next_n = [], []
+    for s in range(0, fb.shape[0], step):
+        sb, sn = fb[s:s + step], fn[s:s + step]
+        nt = -(-sb.shape[0] // tile)
+        # padding entries point at the spare block, whose queries at
+        # −BIG lie outside every (finite) node box and hit no leaf
+        sb = ops.pad_to(sb, nt * tile, 0, nb)
+        sn = ops.pad_to(sn, nt * tile, 0, 0)
+        # children in the reference's order: per tile of entries, their
+        # left children, then their right children
+        cb = sb.view(nt, 1, tile).expand(nt, 2, tile).reshape(-1)
+        cn = torch.stack([left[sn].view(nt, tile),
+                          right[sn].view(nt, tile)], dim=1).reshape(-1)
+        is_leaf = cn >= n_int
+        leaf_id = (cn - n_int).clamp(0, n - 1)
+        nm, bnd = (inputs.node_min[cn], bound[cb]) if prune_payload \
+            else (None, None)
+        hit, mr, push = ops.bvh_batch_sweep(
+            inputs.qblocks[cb], inputs.node_lo[cn], inputs.node_hi[cn],
+            inputs.pts[leaf_id], inputs.croot_leaf[leaf_id], nm, is_leaf,
+            bnd, eps2, bf16_prune=bf16_prune, prune_payload=prune_payload)
+        counts.index_add_(0, cb, hit)
+        minroot.scatter_reduce_(0, cb[:, None].expand(-1, batch), mr, "amin")
+        keep = push.nonzero().squeeze(1)     # in order; one host sync
+        next_b.append(cb[keep])
+        next_n.append(cn[keep])
+    fb, fn = torch.cat(next_b), torch.cat(next_n)
+    return fb[:C], fn[:C], fb.shape[0] > C
+
+
+def wavefront_sweep_plain(bvh: BVH, queries: torch.Tensor,
+                          croot_leaf: torch.Tensor, *, eps: float,
+                          eps2: float, capacity: int, tile: int = 8192,
+                          batch: int = 8, prune_dtype: str = "bf16",
+                          bound=None, max_levels: int = MAX_LEVELS,
+                          stop_on_overflow: bool = False):
+    """:func:`wavefront_sweep` by the plain level loop (:func:`_plain_level`,
+    through ``ops.bvh_batch_sweep`` with the gathers and scatters around
+    it and one host read of each level's push count): the CPU path, and
+    on the card the per-entry kernel's path that the fused level is held
+    to."""
+    inputs, counts, minroot, nb, tile, C = _sweep_setup(
+        bvh, queries, croot_leaf, eps=eps, capacity=capacity, tile=tile,
+        batch=batch, prune_dtype=prune_dtype, bound=bound)
+    nq = queries.shape[0]
+    dev = counts.device
+    nb_live = min(nb, C)
+    fb = torch.arange(nb_live, dtype=torch.int64, device=dev)
+    fn = torch.zeros(nb_live, dtype=torch.int64, device=dev)   # the root
+    ovf = nb > C
+    hist = []
+    while fb.shape[0] and len(hist) < max_levels \
+            and not (stop_on_overflow and ovf):
+        hist.append(fb.shape[0])
+        fb, fn, over = _plain_level(
+            inputs, counts, minroot, fb, fn, eps2, nb=nb, tile=tile, C=C,
+            bf16_prune=prune_dtype == "bf16", prune_payload=bound is not None)
+        ovf = ovf or over
+    hist_t = torch.full((max_levels,), -1, dtype=torch.int32, device=dev)
+    hist_t[:len(hist)] = torch.tensor(hist, dtype=torch.int32, device=dev)
+    return (counts[:nb].reshape(-1)[:nq], minroot[:nb].reshape(-1)[:nq],
+            ovf, hist_t)
+
+
+class _LevelCounts:
+    """What the host knows of the live counts ``nlive`` that the level
+    kernels write on the device: after each launch, an asynchronous copy
+    of the count it wrote into pinned memory, read once it has landed.
+    The host runs at most ``_LEVELS_AHEAD`` levels past the last count it
+    has read, so it waits only for the count of a level launched earlier,
+    never for the one it has just launched. ``waits`` counts those waits.
+    On the CPU the counts are read as they are written."""
+
+    def __init__(self, nlive: torch.Tensor):
+        self.nlive, self.cuda = nlive, nlive.device.type == "cuda"
+        self.host = torch.empty(nlive.shape, dtype=nlive.dtype,
+                                pin_memory=self.cuda) if self.cuda else nlive
+        self.pending = collections.deque()
+        self.waits = 0
+
+    def launched(self, level: int) -> None:
+        k, ev = level + 1, None
+        if self.cuda:
+            self.host[k:k + 1].copy_(self.nlive[k:k + 1], non_blocking=True)
+            ev = torch.cuda.Event()
+            ev.record()
+        self.pending.append((k, ev))
+
+    def ended(self) -> bool:
+        """True once a count read is 0: every later level is a no-op."""
+        while self.pending:
+            k, ev = self.pending[0]
+            if ev is not None and not ev.query():
+                if len(self.pending) < _LEVELS_AHEAD:
+                    return False
+                ev.synchronize()
+                self.waits += 1
+            self.pending.popleft()
+            if int(self.host[k]) == 0:
+                return True
+        return False
+
+
+def wavefront_sweep_fused(bvh: BVH, queries: torch.Tensor,
+                          croot_leaf: torch.Tensor, *, eps: float,
+                          eps2: float, capacity: int, tile: int = 8192,
+                          batch: int = 8, prune_dtype: str = "bf16",
+                          bound=None, max_levels: int = MAX_LEVELS,
+                          stop_on_overflow: bool = False):
+    """:func:`wavefront_sweep` by the fused level (``bvh_sweep.bvh_level``,
+    one launch a level on the card): the frontier, its live count and the
+    overflow flag stay on the device, and the one blocking read is the
+    overflow flag at the end. On the CPU it runs the fused level's plain
+    version."""
+    inputs, counts, minroot, nb, tile, C = _sweep_setup(
+        bvh, queries, croot_leaf, eps=eps, capacity=capacity, tile=tile,
+        batch=batch, prune_dtype=prune_dtype, bound=bound)
+    nq = queries.shape[0]
+    payload = bound is not None
+    state = _bvhk.new_level_state(counts, minroot, capacity=C,
+                                  levels=max_levels, prune_payload=payload)
+    _bvhk.check_level_arrays(inputs, state, prune_payload=payload)
+    nb_live = min(nb, C)
+    state.fb[0, :nb_live] = torch.arange(nb_live, dtype=torch.int32,
+                                         device=counts.device)
+    state.fn[0, :nb_live] = 0                                  # the root
+    if nb > C:
+        state.overflow.fill_(1)
+    if not (stop_on_overflow and nb > C):
+        state.nlive[:1].fill_(nb_live)     # a fill: no host copy to wait for
+        counts_read = _LevelCounts(state.nlive)
+        for level in range(max_levels):
+            if counts_read.ended():
+                break
+            if payload:
+                state.bound.copy_(minroot)
+            _bvhk.bvh_level(inputs, state, level, eps2, tile=tile,
+                            bf16_prune=prune_dtype == "bf16",
+                            prune_payload=payload,
+                            stop_on_overflow=stop_on_overflow)
+            counts_read.launched(level)
+    return (counts[:nb].reshape(-1)[:nq], minroot[:nb].reshape(-1)[:nq],
+            bool(state.overflow[0]), state.hist)
+
+
 def wavefront_sweep(bvh: BVH, queries: torch.Tensor,
                     croot_leaf: torch.Tensor, *, eps: float, eps2: float,
                     capacity: int, tile: int = 8192, batch: int = 8,
@@ -342,11 +547,14 @@ def wavefront_sweep(bvh: BVH, queries: torch.Tensor,
 
     A work queue of (query block, node) entries, each carrying ``batch``
     consecutive queries, is expanded level by level: every live entry
-    emits its two children through ``bvh_batch_sweep``, leaf hits are
-    accumulated at once (``index_add_`` / ``scatter_reduce_`` by block
-    row), and children with at least one useful column are compacted, in
-    order, into the next frontier (at most ``capacity`` of them). See the
-    module docstring for how the level loop differs from the reference's.
+    emits its two children, leaf hits are accumulated by block row, and
+    children with at least one useful column are compacted, in order,
+    into the next frontier (at most ``capacity`` of them). On the card
+    each level is one launch of the fused ``bvh_level`` kernel
+    (:func:`wavefront_sweep_fused`); on the CPU the plain level loop runs
+    (:func:`wavefront_sweep_plain`). The two give the same outputs. See
+    the module docstring for how the level loop differs from the
+    reference's.
 
     queries    (nq, D) f32 — consecutive queries share a frontier entry,
                so pass them in a locality-preserving order (the
@@ -366,79 +574,12 @@ def wavefront_sweep(bvh: BVH, queries: torch.Tensor,
     so results are then untrustworthy); ``stop_on_overflow`` ends the
     traversal at the first overflowing level (cheap calibration probes).
     """
-    pts = bvh.pts_sorted
-    dev = pts.device
-    n, d = pts.shape
-    nq = queries.shape[0]
-    n_int = n - 1
-    nb = -(-nq // batch)
-    prune_payload = bound is not None
-    tile = min(tile, capacity)
-    C = (capacity // tile) * tile
-    step = max(tile, (_LEVEL_ENTRIES // tile) * tile)
-    left, right = bvh.left.long(), bvh.right.long()
-
-    # Queries grouped into nb blocks of `batch`, plus a spare block nb
-    # where dead lanes point: pad queries sit at −BIG (outside every
-    # dilated box, ∞ distance), so they never hit or push; the boxes go to
-    # the kernel as stored (bf16 with the bf16 prune) and widen there.
-    qblocks = ops.pad_to(queries.to(torch.float32), (nb + 1) * batch, 0,
-                         -grid_mod.BIG).reshape(nb + 1, batch, d)
-    node_lo, node_hi = _node_prune_boxes(bvh, eps, prune_dtype)
-    if prune_payload:
-        node_min = _node_payload_min(bvh, croot_leaf)
-        minroot = ops.pad_to(bound.to(torch.int32), (nb + 1) * batch, 0,
-                             INT_MIN)
-    else:
-        node_min = None
-        minroot = torch.full(((nb + 1) * batch,), INT_MAX, dtype=torch.int32,
-                             device=dev)
-    minroot = minroot.reshape(nb + 1, batch)
-    counts = torch.zeros((nb + 1, batch), dtype=torch.int32, device=dev)
-
-    nb_live = min(nb, C)
-    fb = torch.arange(nb_live, dtype=torch.int64, device=dev)
-    fn = torch.zeros(nb_live, dtype=torch.int64, device=dev)   # the root
-    ovf = nb > C
-    hist = []
-    while fb.shape[0] and len(hist) < max_levels \
-            and not (stop_on_overflow and ovf):
-        hist.append(fb.shape[0])
-        next_b, next_n = [], []
-        for s in range(0, fb.shape[0], step):
-            sb, sn = fb[s:s + step], fn[s:s + step]
-            nt = -(-sb.shape[0] // tile)
-            # padding entries point at the spare block, whose queries at
-            # −BIG lie outside every (finite) node box and hit no leaf
-            sb = ops.pad_to(sb, nt * tile, 0, nb)
-            sn = ops.pad_to(sn, nt * tile, 0, 0)
-            # children in the reference's order: per tile of entries, their
-            # left children, then their right children
-            cb = sb.view(nt, 1, tile).expand(nt, 2, tile).reshape(-1)
-            cn = torch.stack([left[sn].view(nt, tile),
-                              right[sn].view(nt, tile)], dim=1).reshape(-1)
-            is_leaf = cn >= n_int
-            leaf_id = (cn - n_int).clamp(0, n - 1)
-            nm, bnd = (node_min[cn], minroot[cb]) if prune_payload \
-                else (None, None)
-            hit, mr, push = ops.bvh_batch_sweep(
-                qblocks[cb], node_lo[cn], node_hi[cn], pts[leaf_id],
-                croot_leaf[leaf_id], nm, is_leaf, bnd, eps2,
-                bf16_prune=prune_dtype == "bf16",
-                prune_payload=prune_payload)
-            counts.index_add_(0, cb, hit)
-            minroot.scatter_reduce_(0, cb[:, None].expand(-1, batch), mr,
-                                    "amin")
-            keep = push.nonzero().squeeze(1)     # in order; one host sync
-            next_b.append(cb[keep])
-            next_n.append(cn[keep])
-        fb, fn = torch.cat(next_b), torch.cat(next_n)
-        ovf = ovf or fb.shape[0] > C
-        fb, fn = fb[:C], fn[:C]
-    hist_t = torch.full((max_levels,), -1, dtype=torch.int32, device=dev)
-    hist_t[:len(hist)] = torch.tensor(hist, dtype=torch.int32, device=dev)
-    return (counts[:nb].reshape(-1)[:nq], minroot[:nb].reshape(-1)[:nq],
-            ovf, hist_t)
+    sweep = wavefront_sweep_plain if bvh.pts_sorted.device.type == "cpu" \
+        else wavefront_sweep_fused
+    return sweep(bvh, queries, croot_leaf, eps=eps, eps2=eps2,
+                 capacity=capacity, tile=tile, batch=batch,
+                 prune_dtype=prune_dtype, bound=bound, max_levels=max_levels,
+                 stop_on_overflow=stop_on_overflow)
 
 
 @functools.lru_cache(maxsize=64)

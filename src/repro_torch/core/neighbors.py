@@ -17,9 +17,11 @@ Engines (registered in ``engines``; one table, no ``if engine ==`` chains):
     rounds), ``sweep_counts`` (stage 1 without the payload plane) and
     ``sweep_frontier`` (the ``frontier_sweep`` kernel re-sweeps only the
     tiles that can still produce a union). The default.
-  * ``grid-hash`` — capacity-padded spatial-hash ε-grid (``gathered_sweep``
-    kernel): each query sweeps the buckets of its 9/27 adjacent cells,
-    gathered per ``chunk`` of queries. O(n · 27 · C) work.
+  * ``grid-hash`` — capacity-padded spatial-hash ε-grid (``hash_sweep``
+    kernel): each query sweeps the occupied slots of the buckets of its
+    9/27 adjacent cells, read from the (H, C) table in one launch (the
+    plain version gathers the padded windows per ``chunk`` of queries:
+    O(n · 27 · C) work).
   * ``brute``     — all-pairs sweep (``pairwise_sweep`` kernel), one launch
     per sweep. O(n²) work.
 
@@ -40,6 +42,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..kernels import gathered_sweep as _gathered
 from ..kernels import ops
 from ..kernels import ref as _kref
 from ..kernels.ref import _dist2, eps2_tensor
@@ -48,7 +51,6 @@ from . import grid as grid_mod
 from .engines import Engine, make_engine  # re-export (public API)  # noqa: F401
 
 INT_MAX = ops.INT_MAX
-BIG = grid_mod.BIG
 
 # Bound on every overflow → double-the-slab-and-retry loop (serving assign
 # and ingest): a slab doubles at most this many times before the caller
@@ -64,6 +66,7 @@ class GridState(NamedTuple):
     buckets: torch.Tensor            # (n, OFF) int32
     cell_valid: torch.Tensor         # (n, OFF) bool
     points: torch.Tensor             # (n, 3) f32 (original order)
+    occupancy: torch.Tensor          # (H,) int32 per bucket: valid prefix
 
 
 def infer_dims(points_np: np.ndarray) -> int:
@@ -86,46 +89,27 @@ def _topk_neighbor_ids(hit, cand_idx, k_max: int):
     return torch.where(key == INT_MAX, -1, key).to(torch.int32), cnt
 
 
-def _hash_windows(state: GridState, chunk: int):
-    """Queries, window buckets and window validity, padded to whole chunks
-    (+BIG queries, bucket 0, invalid)."""
-    n = state.points.shape[0]
-    n_pad = ((n + chunk - 1) // chunk) * chunk
-    return (ops.pad_to(state.points, n_pad, 0, BIG),
-            ops.pad_to(state.buckets, n_pad, 0, 0),
-            ops.pad_to(state.cell_valid, n_pad, 0, False))
-
-
 def hash_window_chunks(state: GridState, core, root, chunk: int):
     """Per chunk of ``chunk`` queries: the ``ops.gathered_sweep`` inputs of
     its windows of 9/27 buckets (queries, candidates, validity, core,
-    root). Gathering per chunk bounds the window buffer to ``chunk`` × 27 ×
-    C candidates."""
+    root), padded to whole chunks (``gathered_sweep.hash_windows``)."""
     g = state.grid
-    width = g.points.shape[1] * state.buckets.shape[1]
-    gidx = g.index.long().clamp(min=0)          # padding slots: any point
-    gcore = g.valid & core[gidx]
-    groot = root[gidx]
-    q, bkt, cv = _hash_windows(state, chunk)
-    for s in range(0, q.shape[0], chunk):
-        bb = bkt[s:s + chunk].long()
-        yield (q[s:s + chunk], g.points[bb].reshape(chunk, width, 3),
-               (g.valid[bb] & cv[s:s + chunk, :, None]).reshape(chunk, width),
-               gcore[bb].reshape(chunk, width),
-               groot[bb].reshape(chunk, width))
+    return _gathered.hash_windows(state.points, state.buckets,
+                                  state.cell_valid, g.points, g.index,
+                                  core, root, chunk)
 
 
 @functools.lru_cache(maxsize=64)
 def _grid_sweep_fn(eps2: float, chunk: int):
-    """The grid-hash sweep: ``gathered_sweep`` over each chunk's gathered
-    windows (:func:`hash_window_chunks`)."""
+    """The grid-hash sweep: ``hash_sweep`` over the bucket table (its plain
+    version, on the CPU, sweeps each chunk's gathered windows)."""
 
     def sweep(state: GridState, core, root):
-        n = state.points.shape[0]
-        out = [ops.gathered_sweep(*args, eps2)
-               for args in hash_window_chunks(state, core, root, chunk)]
-        return (torch.cat([c for c, _ in out])[:n],
-                torch.cat([m for _, m in out])[:n])
+        g = state.grid
+        return _gathered.hash_sweep(
+            state.points.to(torch.float32), g.order, state.buckets,
+            state.cell_valid, g.points, g.index, state.occupancy,
+            core.to(torch.bool), root.to(torch.int32), eps2, chunk=chunk)
 
     return sweep
 
@@ -438,7 +422,8 @@ def _build_grid_hash(points, eps, *, chunk=2048, dims=None, spec=None):
     g = grid_mod.build_grid(points, spec)
     buckets, cell_valid = grid_mod.neighbor_buckets(points, spec)
     state = GridState(grid=g, buckets=buckets, cell_valid=cell_valid,
-                      points=points)
+                      points=points,
+                      occupancy=g.valid.sum(dim=1, dtype=torch.int32))
     return Engine("grid-hash", state, _grid_sweep_fn(eps2, chunk),
                   points.device, meta=spec, timings={"plan_s": plan_s},
                   neighbors=_grid_hash_neighbors_fn(eps2, chunk))

@@ -19,24 +19,8 @@ from . import frontier_sweep as _frontier
 from . import gathered_sweep as _gathered
 from . import morton as _morton
 from . import pairwise_sweep as _pairwise
-from .ref import INT_MAX
-
-BIG = 1e30
-
-
-def _round_up(x: int, m: int) -> int:
-    return ((x + m - 1) // m) * m
-
-
-def pad_to(x, n: int, dim: int, value):
-    """``x`` padded with ``value`` along ``dim`` to length ``n``."""
-    pad = n - x.shape[dim]
-    if pad == 0:
-        return x
-    shape = list(x.shape)
-    shape[dim] = pad
-    return torch.cat([x, torch.full(shape, value, dtype=x.dtype,
-                                    device=x.device)], dim=dim)
+from .ref import BIG, INT_MAX, pad_to  # noqa: F401  (re-exported)
+from .ref import round_up as _round_up
 
 
 def fuse_core_root(core, root):
@@ -171,22 +155,8 @@ def pairwise_sweep(queries, cands, core, root, eps2, *, block_q: int = 256,
     return counts[:nq], minroot[:nq]
 
 
-def gathered_sweep_args(queries, cands, cand_valid, cand_core, cand_root,
-                        *, block_b: int = 128, block_k: int = 512):
-    """The kernel inputs of :func:`gathered_sweep`: invalid candidates
-    become +BIG coordinates, ``valid & core`` is fused into the payload,
-    rows pad to a multiple of ``block_b`` and windows to one of
-    ``block_k``, and the window goes planar (3, b, k)."""
-    b, k = cands.shape[0], cands.shape[1]
-    b_p = _round_up(max(b, 1), block_b)
-    k_p = _round_up(max(k, 1), block_k)
-    cands = torch.where(cand_valid[..., None], cands.to(torch.float32), BIG)
-    q = pad_to(queries.to(torch.float32), b_p, 0, BIG).contiguous()
-    c = pad_to(pad_to(cands, k_p, 1, BIG), b_p, 0, BIG)
-    croot = torch.where(cand_valid & cand_core, cand_root, INT_MAX) \
-        .to(torch.int32)
-    croot = pad_to(pad_to(croot, k_p, 1, INT_MAX), b_p, 0, INT_MAX)
-    return q, c.permute(2, 0, 1).contiguous(), croot.contiguous()
+# the kernel inputs of gathered_sweep from gathered windows
+gathered_sweep_args = _gathered.window_args
 
 
 def gathered_sweep(queries, cands, cand_valid, cand_core, cand_root, eps2, *,

@@ -6,6 +6,8 @@ reproduce bit for bit: f32, one coordinate at a time in ascending order,
 FMA (``addcmul`` or a contracted multiply-add rounds once and flips hits
 at d² = ε²). ``morton_encode_ref`` is the Morton code of the grid build;
 as in the reference path it is plain tensor code, not a kernel.
+``pad_to`` pads the kernels' inputs (with ``BIG`` coordinates and an
+INT32_MAX payload, by the wrappers' conventions).
 """
 from __future__ import annotations
 
@@ -13,14 +15,31 @@ import numpy as np
 import torch
 
 INT_MAX = 2**31 - 1
+BIG = 1e30
+
+
+def round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def pad_to(x, n: int, dim: int, value):
+    """``x`` padded with ``value`` along ``dim`` to length ``n``."""
+    pad = n - x.shape[dim]
+    if pad == 0:
+        return x
+    shape = list(x.shape)
+    shape[dim] = pad
+    return torch.cat([x, torch.full(shape, value, dtype=x.dtype,
+                                    device=x.device)], dim=dim)
 
 
 def eps2_tensor(eps2: float, device) -> torch.Tensor:
     """ε² rounded once to f32, as a 0-dim tensor on ``device``: the plain
     versions compare d² with it (a comparison with a Python float is not
     promised to round ε² the same way)."""
-    return torch.tensor(float(np.float32(eps2)), dtype=torch.float32,
-                        device=device)
+    # a fill on the device: no host-to-device copy to wait for
+    return torch.full((), float(np.float32(eps2)), dtype=torch.float32,
+                      device=device)
 
 
 def _dist2(q: torch.Tensor, c: torch.Tensor) -> torch.Tensor:

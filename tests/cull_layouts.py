@@ -92,3 +92,31 @@ def with_padding_tiles(args, block_q, n_real):
     return (np.concatenate([q, tail]), cp, croot,
             np.concatenate([st, [0, 0]]).astype(np.int32),
             np.concatenate([nb, [n_blocks, n_blocks]]).astype(np.int32))
+
+
+# --- the grid-hash sweep and the fused BVH level -------------------------
+
+# (name, n, ε, dims) of the datasets the fused kernels are held on
+FUSED_DATASETS = [("roadnet2d", 20_000, 0.02, 2), ("iono3d", 20_000, 4.0, 3),
+                  ("skewed2d", 20_000, 0.02, 2)]
+
+
+def lattice_cloud(rng, n, dims, side=32):
+    """n points on the 1/8 lattice in [0, side/8]^dims (z = 0 in 2-D): with
+    ε = 3/8 many pairs lie at d² = 9/64 = ε² exactly."""
+    p = rng.integers(0, side + 1, (n, 3)).astype(np.float32) / 8
+    if dims == 2:
+        p[:, 2] = 0
+    return p.astype(np.float32)
+
+
+def payload(rng, n):
+    """A seeded payload: core (n,) bool, root (n,) int32."""
+    return rng.uniform(size=n) < 0.5, rng.integers(0, n, n).astype(np.int32)
+
+
+def lattice_counts(q, pts, eps2):
+    """ε-counts of the lattice queries ``q`` over ``pts`` (every sum exact
+    on the 1/8 lattice, so any order of the sum gives the same d²)."""
+    d2 = ((q[:, None, :] - pts[None, :, :]) ** 2).sum(-1)
+    return (d2 <= np.float32(eps2)).sum(1).astype(np.int32)

@@ -61,5 +61,5 @@ def test_cpu_run_launches_no_bvh_kernel():
     pts = CASES[0][1]
     for engine in ("bvh", "bvh-stack"):
         dbscan(pts, 0.08, 6, engine=engine, device="cpu")
-    assert tsweep.LAUNCHES == {"bvh_batch_sweep": 0}
+    assert tsweep.LAUNCHES == {"bvh_batch_sweep": 0, "bvh_level": 0}
     assert tmorton.LAUNCHES == {"morton_encode": 0}

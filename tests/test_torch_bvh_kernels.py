@@ -305,7 +305,7 @@ def test_cpu_calls_do_not_count_launches_and_bad_inputs_raise():
     t = [torch.as_tensor(x) for x in args]
     tsweep.bvh_batch_sweep(*t, eps2)
     tmorton.morton_encode(torch.zeros((4, 3), dtype=torch.int32))
-    assert tsweep.LAUNCHES == {"bvh_batch_sweep": 0}
+    assert tsweep.LAUNCHES == {"bvh_batch_sweep": 0, "bvh_level": 0}
     assert tmorton.LAUNCHES == {"morton_encode": 0}
     for call in _meta_calls().values():
         with pytest.raises(ValueError, match="not meta"):
@@ -356,7 +356,7 @@ def test_device_tensors_launch_or_raise_never_plain(monkeypatch):
         assert n_args == len(sig)
         # device first and stream last, as build.launch passes them
         assert ["i", *sig, "p"] == _c_params(fn)
-    assert tsweep.LAUNCHES == {"bvh_batch_sweep": 0}
+    assert tsweep.LAUNCHES == {"bvh_batch_sweep": 0, "bvh_level": 0}
     assert tmorton.LAUNCHES == {"morton_encode": 0}
 
     monkeypatch.undo()

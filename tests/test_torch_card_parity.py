@@ -4,7 +4,13 @@ version on the same tensors, on layouts built to be culled
 (``cull_layouts.py``: box gaps of exactly ε and one f32 step either side, a
 heavy tile split over work items, +1e30 tail runs; for the frontier every
 live-set size under the park contract, for the cross query tiles of +1e30
-padding rows).
+padding rows). And the two kernels that do their own gathers:
+``hash_sweep`` against its plain version and the ``gathered_sweep`` path
+on small grids with aliased buckets and pairs at d² = ε² (and the float
+below); the fused BVH level, every level against ``bvh_level_plain`` and
+every traversal against the ``bvh_batch_sweep`` level loop, exact and
+terminated, D = 2 and 3, with a capacity that overflows and a probe that
+stops there: counts, minroot, overflow and histogram.
 
 Every test here is marked ``cuda`` and skips, with its reason, where torch
 sees no CUDA device. It imports neither JAX nor the JAX package, so it
@@ -17,9 +23,16 @@ import numpy as np
 import pytest
 import torch
 
-from cull_layouts import EQ_BELOW, culled_layout, with_padding_tiles
+from cull_layouts import (EPS, EQ_BELOW, culled_layout, lattice_cloud,
+                          lattice_counts, payload, with_padding_tiles)
+from repro_torch import make_engine
+from repro_torch.core import bvh as tbvh
+from repro_torch.core import grid as tgrid
+from repro_torch.data import synth
+from repro_torch.kernels import bvh_sweep as tsweep
 from repro_torch.kernels import cross_sweep as tcross
 from repro_torch.kernels import frontier_sweep as tfrontier
+from repro_torch.kernels import gathered_sweep as tgathered
 
 INT_MAX = np.iinfo(np.int32).max
 LAYOUTS = [(d, bq, bk) for d in (2, 3) for bq, bk in ((32, 128), (64, 512))]
@@ -79,3 +92,108 @@ def test_cross_sweep_kernel_is_its_plain_version(card, layout, eps2):
     for a, b in zip(k, p):
         _same(a, b)
     assert torch.isfinite(k[2]).any()
+
+
+HASH_CASES = ["roadnet2d", "aliased", "lattice2d", "lattice3d"]
+
+
+def _hash_engine(name, card):
+    if name == "roadnet2d":
+        pts, eps, dims, spec = synth.load(name, 3_000, seed=0), 0.02, 2, None
+    elif name == "aliased":
+        pts = synth.load("roadnet2d", 2_000, seed=1)
+        eps, dims = 0.05, 2
+        spec = tgrid.plan_grid(pts, eps, dims=2, max_table_size=64)
+    else:
+        dims = int(name[-2])
+        pts = lattice_cloud(np.random.default_rng(dims), 3_000, dims)
+        eps, spec = EPS, None
+    eng = make_engine(pts, eps, engine="grid-hash", dims=dims, spec=spec,
+                      device=card)
+    core, root = payload(np.random.default_rng(7), len(pts))
+    st, g = eng.state, eng.state.grid
+    args = (st.points, g.order, st.buckets, st.cell_valid, g.points, g.index,
+            st.occupancy, torch.as_tensor(core, device=card),
+            torch.as_tensor(root, device=card))
+    return pts, eps, args
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", HASH_CASES)
+def test_hash_sweep_kernel_is_its_plain_version(card, name):
+    pts, eps, args = _hash_engine(name, card)
+    if name == "aliased":
+        assert bool((~args[3]).any())
+    for eps2 in EQ_BELOW if name.startswith("lattice") else [eps * eps]:
+        tgathered.reset_launches()
+        k = tgathered.hash_sweep(*args, eps2)
+        assert tgathered.LAUNCHES == {"gathered_sweep": 0, "hash_sweep": 1}
+        p = tgathered.hash_sweep_plain(*args, eps2)
+        a = tgathered.sweep_windows(tgathered.gathered_sweep, *args, eps2)
+        for i in range(2):
+            _same(k[i], p[i])
+            _same(k[i], a[i])
+        if name.startswith("lattice"):
+            np.testing.assert_array_equal(
+                k[0][:200].cpu().numpy(), lattice_counts(pts[:200], pts,
+                                                         eps2))
+
+
+def _checked_level(monkeypatch, levels):
+    """Every bvh_level launch also runs the plain version on a copy of the
+    state, and the two must agree."""
+    real = tsweep.bvh_level
+
+    def level(inputs, state, lvl, eps2, **kw):
+        plain = tsweep.LevelState._make(
+            None if x is None else x.clone() for x in state)
+        real(inputs, state, lvl, eps2, **kw)
+        tsweep.bvh_level_plain(inputs, plain, lvl, eps2, **kw)
+        for f in ("counts", "minroot", "nlive", "overflow", "hist"):
+            _same(getattr(state, f), getattr(plain, f))
+        nxt = int(plain.nlive[lvl + 1])
+        wrote = state.fb.shape[1] if kw.get("stop_on_overflow") and \
+            bool(plain.overflow[0]) and nxt == 0 else nxt
+        dst = (lvl + 1) % 2
+        _same(state.fb[dst, :wrote], plain.fb[dst, :wrote])
+        _same(state.fn[dst, :wrote], plain.fn[dst, :wrote])
+        levels.append(lvl)
+    monkeypatch.setattr(tsweep, "bvh_level", level)
+
+
+BVH_CASES = [(mode, dims, cap) for mode in ("exact", "terminated")
+             for dims in (2, 3) for cap in ("fits", "overflows", "probe")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,dims,cap", BVH_CASES,
+                         ids=["-".join(map(str, c)) for c in BVH_CASES])
+def test_bvh_level_traversal_is_the_plain_loop(card, monkeypatch, mode, dims,
+                                               cap):
+    name, eps, small = (("skewed2d", 0.05, 1536) if dims == 2 else
+                        ("iono3d", 8.0, 1024))
+    pts = torch.as_tensor(synth.load(name, 1_500, seed=4 if dims == 2
+                                     else 0), device=card)
+    n = pts.shape[0]
+    rng = np.random.default_rng(3)
+    croot = torch.as_tensor(np.where(rng.uniform(size=n) < 0.5,
+                                     rng.integers(0, n, n), INT_MAX)
+                            .astype(np.int32), device=card)
+    bound = torch.as_tensor(rng.integers(0, n, n).astype(np.int32),
+                            device=card)
+    tree = tbvh.build_bvh(pts, dims=dims)
+    kw = dict(eps=eps, eps2=eps * eps, tile=512,
+              capacity=1 << 16 if cap == "fits" else small,
+              stop_on_overflow=cap == "probe",
+              bound=bound if mode == "terminated" else None)
+    levels = []
+    _checked_level(monkeypatch, levels)
+    tsweep.reset_launches()
+    f = tbvh.wavefront_sweep(tree, tree.pts_sorted, croot, **kw)
+    monkeypatch.undo()
+    a = tbvh.wavefront_sweep_plain(tree, tree.pts_sorted, croot, **kw)
+    for x, y in zip((f[0], f[1], f[3]), (a[0], a[1], a[3])):
+        _same(x, y)
+    assert f[2] == a[2] == (cap != "fits")
+    ran = int((a[3] >= 0).sum())
+    assert ran <= len(levels) <= ran + 1

@@ -170,7 +170,8 @@ def test_hash_state_carry_sweeps_reference_layout():
     state = tnb.GridState(
         grid=g, buckets=torch.as_tensor(np.array(jeng.state.buckets)),
         cell_valid=torch.as_tensor(np.array(jeng.state.cell_valid)),
-        points=torch.as_tensor(pts))
+        points=torch.as_tensor(pts),
+        occupancy=g.valid.sum(dim=1, dtype=torch.int32))
     sweep = tnb._grid_sweep_fn(float(eps) ** 2, 2048)
     rng = np.random.default_rng(3)
     core = rng.uniform(size=500) < 0.5

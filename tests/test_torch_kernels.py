@@ -332,7 +332,7 @@ def test_cpu_calls_of_new_kernels_do_not_count_launches():
     _frontier_both(_mk_slab(3, 256, 6, 6, 128), np.arange(3, dtype=np.int32),
                    3, 0.4, slab=6 * 128, block_q=256, bk=128)
     assert tpairwise.LAUNCHES == {"pairwise_sweep": 0}
-    assert tgathered.LAUNCHES == {"gathered_sweep": 0}
+    assert tgathered.LAUNCHES == {"gathered_sweep": 0, "hash_sweep": 0}
     assert tfrontier.LAUNCHES == {"frontier_sweep": 0}
 
 

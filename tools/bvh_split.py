@@ -10,8 +10,11 @@ roadnet2d 435,000 (ε = 0.02) and iono3d 1,000,000 (ε = 2.0), seed 0, it
 builds the engine, then prints one JSON line per dataset: the median host
 ms of ``sweep_counts`` (ending in a synchronize) over ``--reps`` runs after
 a warm-up, and the device time of one more sweep traced by
-``torch.profiler``, split into gathers, ``bvh_batch_sweep``, scatters and
-the rest (``chip_smoke.profile_split``). Exits 2 without a CUDA device.
+``torch.profiler``, split (``chip_smoke.profile_split``) into the level
+kernel (the fused ``bvh_level``, or ``bvh_batch_sweep`` in a tree from
+before it), the gathers and scatters around the per-entry kernel, copies
+and fills (the fused loop's bound snapshots, count copies and zeroed
+buffers) and the rest. Exits 2 without a CUDA device.
 """
 from __future__ import annotations
 
