@@ -42,7 +42,8 @@ load). Phases:
      pairs at d² = ε², queries a fraction of a bf16 ulp either side of a
      box edge, dead entries, and 64 seeded slices of the widest level of
      the full-size roadnet2d exact traversal (gathered_sweep and
-     bvh_batch_sweep no longer run on any path: each is the A side of the
+     bvh_batch_sweep and morton_encode no longer run on any path: each is
+     the A side of the
      kernel that replaced it); hash_sweep against its plain version and
      the gathered_sweep path on grid-hash engines at n = 20,000
      (roadnet2d, iono3d, skewed2d), on a table of 64 buckets (aliased
@@ -51,7 +52,15 @@ load). Phases:
      overflowing and stop-at-overflow traversals with bf16 and f32 boxes,
      every level against bvh_level_plain (counts, minroot, the next
      frontier, live counts, overflow, histogram) and every traversal
-     against the bvh_batch_sweep loop;
+     against the bvh_batch_sweep loop; then the LBVH build: build_bvh and
+     max_leaf_depth on the card (one launch each of lbvh_keys, lbvh_nodes,
+     lbvh_refit, lbvh_depth) against the plain versions on the same
+     tensors, every BVH field bitwise (int32 views: -0.0 and +0.0
+     differ), on edge cases (n = 2, 3, 5, 1,023, 4,097 at D = 2, 3, 4 and
+     2-D in (n, 3); all points equal, duplicates, +1e30 sentinels under a
+     lo/hi override, signed zeros) and at full size (roadnet2d 435,000,
+     iono3d 1,000,000), with the engines' build time on the host and one
+     build's kernel launches and device operations (torch.profiler);
   4. whole path at n = 20,000 (roadnet2d, iono3d at the full-size ε and
      minPts, where it is all noise, and iono3d at ε = 4.0, minPts = 16,
      where it clusters and hooks), every path:
@@ -90,7 +99,10 @@ load). Phases:
      them the kept pairs' time at the unfused FP32 issue rate; for the csr
      sweeps also the operations bound at the slab's pairs and at what
      G = 64 would keep; for pairwise_sweep its FP32 issue-rate floor over
-     every pair); morton_encode on the bvh build's own input; hash_sweep
+     every pair); the LBVH kernels (lbvh_keys, lbvh_nodes, lbvh_refit,
+     lbvh_depth) on the bvh build's own input, lbvh_keys also held to
+     morton_encode_plain of the quantized cells, and morton_encode on
+     those cells (lbvh_keys' A side); hash_sweep
      on one sweep of the grid-hash run (its bounds: its inputs read once
      and its occupied pairs; beside them the padded windows' bytes, the
      slots as read and the issue rate), with gathered_sweep per chunk
@@ -100,8 +112,8 @@ load). Phases:
      host reads (torch.cuda's sync debug mode) and waits for an earlier
      level's count, its bytes bound and the per-entry kernel's, with
      bvh_batch_sweep at the widest level and its whole level loop beside
-     it. Rows 7 and 8 of the kernels line carry those A-side numbers
-     under ``previous``.
+     it. Rows 6, 7 and 8 of the kernels line (lbvh_keys, bvh_level,
+     hash_sweep) carry those A-side numbers under ``previous``.
 
 Before the last line it prints one ``{"kernels": [...]}`` JSON line; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -151,7 +163,9 @@ SUBSET = 64      # tiles (chunks) of the full-size layouts for plain versions
 
 # dbscan options of each path (``early_exit``: the FDBSCAN baseline's run
 # instead of dbscan), and the kernels the path must launch
-BVH_KERNELS = ("morton_encode", "bvh_level")
+LBVH_BUILD = ("lbvh_keys", "lbvh_nodes", "lbvh_refit")
+BVH_KERNELS = LBVH_BUILD + ("bvh_level",)
+STACK_KERNELS = LBVH_BUILD + ("lbvh_depth",)
 PATHS = {
     "grid/device": (dict(engine="grid", hook_loop="device"),
                     ("csr_sweep_counts", "csr_sweep")),
@@ -161,9 +175,8 @@ PATHS = {
     "brute": (dict(engine="brute"), ("pairwise_sweep",)),
     "bvh/device": (dict(engine="bvh", hook_loop="device"), BVH_KERNELS),
     "bvh/frontier": (dict(engine="bvh", hook_loop="frontier"), BVH_KERNELS),
-    "bvh-stack": (dict(engine="bvh-stack"), ("morton_encode",)),
-    "fdbscan": (dict(engine="bvh-stack", early_exit=True),
-                ("morton_encode",)),
+    "bvh-stack": (dict(engine="bvh-stack"), STACK_KERNELS),
+    "fdbscan": (dict(engine="bvh-stack", early_exit=True), STACK_KERNELS),
 }
 ENTRIES_PER_SLICE = 2_048   # bvh_batch_sweep parity: entries per slice
 LEVEL_REPS = 5              # exact sweeps timed per level (median)
@@ -194,14 +207,28 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
                    "src/repro/kernels/gathered_sweep.py:55"),
     "cross_sweep": ("src/repro_torch/csrc/csr_sweep.cu",
                     "src/repro/kernels/cross_sweep.py:94"),
-    "morton_encode": ("src/repro_torch/csrc/bvh_sweep.cu",
-                      "src/repro/kernels/morton.py:50"),
+    "lbvh_keys": ("src/repro_torch/csrc/lbvh.cu",
+                  "src/repro/kernels/morton.py:50"),
+    # counterparts of jnp code of the reference, not of TPU kernels
+    "lbvh_nodes": ("src/repro_torch/csrc/lbvh.cu",
+                   "src/repro/core/bvh.py:99"),
+    "lbvh_refit": ("src/repro_torch/csrc/lbvh.cu",
+                   "src/repro/core/bvh.py:99"),
+    "lbvh_depth": ("src/repro_torch/csrc/lbvh.cu",
+                   "src/repro/core/bvh.py:196"),
     "bvh_level": ("src/repro_torch/csrc/bvh_sweep.cu",
                   "src/repro/kernels/bvh_sweep.py:79"),
 }
-# the kernels that the redesigned rows 7 and 8 replaced on every path; their
-# parity phases and times stay, as each new kernel's A side
-PREVIOUS = {"hash_sweep": "gathered_sweep", "bvh_level": "bvh_batch_sweep"}
+# the kernels that the redesigned rows 6, 7 and 8 replaced on every path,
+# with their sources; their parity phases and times stay, as each new
+# kernel's A side
+PREVIOUS = {
+    "hash_sweep": ("gathered_sweep", "src/repro_torch/csrc/gathered_sweep.cu"),
+    "bvh_level": ("bvh_batch_sweep", "src/repro_torch/csrc/bvh_sweep.cu"),
+    "lbvh_keys": ("morton_encode", "src/repro_torch/csrc/bvh_sweep.cu"),
+}
+# edge cases of the LBVH build parity (besides the full-size builds)
+LBVH_EDGE_N = (2, 3, 5, 1_023, 4_097)
 
 
 class SmokeFailure(Exception):
@@ -247,7 +274,7 @@ class Env:
         from repro_torch.core import bvh, grid, neighbors
         from repro_torch.kernels import (build, bvh_sweep, cross_sweep,
                                          csr_sweep, frontier_sweep,
-                                         gathered_sweep, morton, ops,
+                                         gathered_sweep, lbvh, morton, ops,
                                          pairwise_sweep, ref)
         from repro_torch.serve import snapshot
         self.torch, self.repro_torch = torch, repro_torch
@@ -257,9 +284,9 @@ class Env:
         self.cross, self.serve, self.snapshot = cross_sweep, serve, snapshot
         self.nb, self.bvh, self.fdbscan = neighbors, bvh, fdbscan
         self.grid = grid
-        self.bvhk, self.morton = bvh_sweep, morton
+        self.bvhk, self.morton, self.lbvh = bvh_sweep, morton, lbvh
         self.modules = (csr_sweep, frontier_sweep, pairwise_sweep,
-                        gathered_sweep, cross_sweep, morton, bvh_sweep)
+                        gathered_sweep, cross_sweep, morton, bvh_sweep, lbvh)
         self.dev = torch.device("cuda")
 
     def reset_launches(self) -> None:
@@ -1123,13 +1150,13 @@ class BVHRecorder:
     """While active, records the work of a BVH path: each wavefront sweep
     (host seconds ending in a synchronize, whether it is a calibration
     probe, its level histogram, and per bvh_level launch a pair of CUDA
-    events around it), and the build's morton_encode input. The events and
-    the synchronizes launch no kernel."""
+    events around it), and the build's lbvh_keys input. The events and the
+    synchronizes launch no kernel."""
 
     def __init__(self, E):
         self.E, self.sweeps = E, []
-        self.morton_rec = CallRecorder(E.morton, "morton_encode",
-                                       keep=lambda i: i == 0)
+        self.keys_rec = CallRecorder(E.lbvh, "lbvh_keys",
+                                     keep=lambda i: i == 0)
 
     def __enter__(self):
         E, t = self.E, self.E.torch
@@ -1162,17 +1189,17 @@ class BVHRecorder:
             return out
 
         E.bvh.wavefront_sweep, E.bvhk.bvh_level = sweep, kernel
-        self.morton_rec.__enter__()
+        self.keys_rec.__enter__()
         return self
 
     def __exit__(self, *exc):
-        self.morton_rec.__exit__(*exc)
+        self.keys_rec.__exit__(*exc)
         self.E.bvh.wavefront_sweep, self.E.bvhk.bvh_level = self.real
 
     @property
-    def morton(self):
-        """(args, kw) of the run's first morton_encode call."""
-        return self.morton_rec.calls[0]
+    def keys(self):
+        """(args, kw) of the run's first lbvh_keys call."""
+        return self.keys_rec.calls[0]
 
     @property
     def probes(self) -> int:
@@ -1341,6 +1368,145 @@ def phase_parity(E):
     parity_bvh(E, road)
     parity_hash(E)
     parity_bvh_level(E)
+
+
+# --------------------------------------------------------------------------
+# the LBVH build: the card's build against its plain versions
+
+
+def same_bits(E, what: str, k, p) -> None:
+    """``same`` on the bits of a float output: -0.0 and +0.0 differ."""
+    t = E.torch
+    if k.dtype == t.float32:
+        k, p = k.view(t.int32), p.view(t.int32)
+    same(E, what, k, p)
+
+
+def lbvh_extent(E, pts, lo, hi):
+    """build_bvh's quantization extent: the override, else the points'."""
+    t = E.torch
+    if lo is None or hi is None:
+        amin, amax = t.aminmax(pts, dim=0)
+    return (amin if lo is None else t.as_tensor(lo, device=pts.device),
+            amax if hi is None else t.as_tensor(hi, device=pts.device))
+
+
+def plain_build(E, pts, dims, lo, hi):
+    """build_bvh by the plain versions of its kernels, on the same tensors:
+    ({BVH field: tensor}, the plain Nodes)."""
+    L = E.lbvh
+    lo_t, hi_t = lbvh_extent(E, pts, lo, hi)
+    codes = L.lbvh_keys_plain(pts, lo_t, hi_t, dims=min(dims, 3))
+    codes, order = E.torch.sort(codes, stable=True)
+    nodes = L.lbvh_nodes_plain(codes)
+    fit = L.lbvh_refit_plain(pts, order, nodes)
+    return dict(nodes._asdict(), **fit._asdict()), nodes
+
+
+def check_build(E, pts, dims, lo, hi, what: str):
+    """build_bvh and max_leaf_depth of ``pts`` on the card, one launch of
+    each LBVH kernel, every BVH field bitwise and the depth equal to the
+    plain versions' on the same tensors. Returns the depth."""
+    E.lbvh.reset_launches()
+    tree = E.bvh.build_bvh(pts, dims=dims, lo=lo, hi=hi)
+    depth = E.bvh.max_leaf_depth(tree.left, tree.right)
+    check(set(E.lbvh.LAUNCHES.values()) == {1},
+          f"{what}: LBVH launches {E.lbvh.LAUNCHES}")
+    plain, nodes = plain_build(E, pts, dims, lo, hi)
+    for f in E.bvh.BVH._fields:
+        same_bits(E, f"{what} {f}", getattr(tree, f), plain[f])
+    want = int(E.lbvh.lbvh_depth_plain(nodes.left, nodes.right)[0])
+    check(depth == want, f"{what}: max_leaf_depth {depth} != plain {want}")
+    return depth
+
+
+def lbvh_edge_cases():
+    """(what, points, dims, lo, hi) of the build parity's edge cases."""
+    rng = np.random.default_rng(18)
+    out = []
+    for n in LBVH_EDGE_N:
+        for d, dims in ((3, 3), (3, 2), (2, 2), (4, 4)):
+            p = rng.uniform(-1, 1, (n, d)).astype(np.float32)
+            if dims < d:
+                p[:, 2] = 0          # 2-D data in (n, 3)
+            out.append((f"n={n} D={d} dims={dims}", p, dims, None, None))
+    m = 1_023
+    out.append(("all equal", np.tile(np.float32([[0.25, -3.0, 7.5]]),
+                                     (m, 1)), 3, None, None))
+    out.append(("duplicates", rng.uniform(-1, 1, (50, 3)).astype(
+        np.float32)[rng.integers(0, 50, 4_097)], 3, None, None))
+    sent = rng.uniform(-1, 1, (m, 3)).astype(np.float32)
+    lo, hi = sent[:900].min(0), sent[:900].max(0)
+    sent[900:] = 1e30
+    out.append(("+1e30 sentinels, lo/hi override", sent, 3, lo, hi))
+    zeros = np.stack(
+        [rng.choice(np.float32([-0.0, 0.0, 1, 2]), m),
+         rng.choice(np.float32([-0.0, 0.0, -1, -2]), m),
+         rng.choice(np.float32([-0.0, 0.0]), m)], axis=1)
+    out.append(("signed zeros", zeros, 3, None, None))
+    out.append(("signed zeros 2-D", np.ascontiguousarray(zeros[:, :2]), 2,
+                None, None))
+    return out
+
+
+def host_ms(E, fn, reps: int = 5):
+    """(median, all) host ms of ``fn`` ending in a synchronize, over
+    ``reps`` calls after a warm-up."""
+    fn()
+    E.torch.cuda.synchronize()
+    runs = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        E.torch.cuda.synchronize()
+        runs.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(runs), runs
+
+
+def phase_lbvh(E):
+    t = E.torch
+    cases = lbvh_edge_cases()
+    for what, p, dims, lo, hi in cases:
+        check_build(E, E.tensor(p), dims, lo, hi, f"LBVH {what}")
+    log(f"  build_bvh and max_leaf_depth: {len(cases)} edge cases (n = "
+        f"{', '.join(map(str, LBVH_EDGE_N))} at D = 2, 3, 4 and 2-D in "
+        "(n, 3); all points equal, duplicates, +1e30 sentinels under a "
+        "lo/hi override, signed zeros), every BVH field bitwise and the "
+        "depth equal to the plain versions'")
+    E.lbvh_stats = {}
+    for name, n, _, _ in FULL:
+        pts = t.as_tensor(E.repro_torch.synth.load(name, n, seed=0),
+                          device=E.dev)
+        dims = E.bvh._infer_dims(pts)
+        depth = check_build(E, pts, dims, None, None, f"LBVH {name} n={n}")
+        tree_ms, tree_runs = host_ms(E, lambda: E.bvh._tree(pts, None))
+        tree = E.bvh.build_bvh(pts, dims=dims)
+        depth_ms, _ = host_ms(
+            E, lambda: E.bvh.max_leaf_depth(tree.left, tree.right))
+        plain_ms, _ = host_ms(E, lambda: plain_build(E, pts, dims, None,
+                                                     None), reps=1)
+        _, rows = profile_device(E, lambda: E.bvh.build_bvh(pts, dims=dims))
+        short = [(r[0].replace("void ", "")
+                  .replace("(anonymous namespace)::", "")
+                  .split("(")[0].split("<")[0].strip(), round(r[1], 4), r[2])
+                 for r in rows]
+        kern = sum(r[2] for r in rows
+                   if not r[0].startswith(("Memcpy", "Memset")))
+        ops = sum(r[2] for r in rows)
+        sort_ops = sum(c for k, _, c in short
+                       if "RadixSort" in k or "reverse_indices" in k
+                       or k.startswith(("Memcpy DtoD", "Memset")))
+        E.lbvh_stats[name] = dict(tree_ms=tree_ms, kernels=kern, ops=ops)
+        log(f"  {name} n={n} dims={dims}: build_bvh on the card = the plain "
+            f"versions, every field bitwise; max_leaf_depth {depth} = plain."
+            f" The engines' build (_tree) {tree_ms:.3f} ms on the host "
+            f"(median of 5: {[round(x, 3) for x in tree_runs]}), "
+            f"max_leaf_depth {depth_ms:.3f} ms, the plain build "
+            f"{plain_ms:.1f} ms. One build_bvh (torch.profiler): {kern} "
+            f"kernel launches, {ops} device operations (the sort "
+            f"{sort_ops}), {sum(r[1] for r in rows):.3f} ms of device time")
+        log(f"    device operations of one build (name, ms, count): "
+            + json.dumps(short))
 
 
 # --------------------------------------------------------------------------
@@ -2185,17 +2351,111 @@ def sweep_bytes(calls) -> int:
     return total
 
 
-def times_morton(E, name, run):
-    """morton_encode on the bvh build's own input; plain on the same."""
-    args, kw = run["rec"].morton
-    n = args[0].shape[0]
-    ms = cuda_ms(E, lambda: E.morton.morton_encode(*args, **kw))
+def quantized(E, pts, lo, hi):
+    """The (n, 3) int32 cells of the build's quantization (the plain
+    version's arithmetic): morton_encode's input, as before the build's
+    keys became one kernel."""
+    t = E.torch
+    top = t.full((), 1023.0, dtype=t.float32, device=pts.device)
+    scale = t.where(hi > lo, top / (hi - lo), 0.0)
+    q = t.clamp((pts - lo) * scale, 0, 1023).to(t.int32)
+    q = E.ops.pad_to(q, 3, 1, 0) if q.shape[1] < 3 else q[:, :3]
+    return q.contiguous()
+
+
+def times_morton(E, coords, dims):
+    """morton_encode (lbvh_keys' A side) on the build's quantized cells;
+    plain on the same."""
+    n = coords.shape[0]
+    ms = cuda_ms(E, lambda: E.morton.morton_encode(coords, dims=dims))
     plain_ms, p_out = timed_once(
-        E, lambda: E.morton.morton_encode_plain(*args, **kw))
-    err = max_err(E.morton.morton_encode(*args, **kw), p_out)
-    return row("morton_encode", run["launches"]["morton_encode"], ms,
-               plain_ms, bound(0, 16 * n), err, plain_shapes="full",
-               points=n, dims=kw.get("dims"))
+        E, lambda: E.morton.morton_encode_plain(coords, dims=dims))
+    err = max_err(E.morton.morton_encode(coords, dims=dims), p_out)
+    return row("morton_encode", 0, ms, plain_ms, bound(0, 16 * n), err,
+               plain_shapes="full", points=n, dims=dims)
+
+
+def lbvh_bytes(n: int, d: int) -> dict:
+    """Bytes each LBVH kernel must move at n points of D coordinates, each
+    input read once and each output written once (lbvh_refit's arrival
+    counters, and lo / hi, read once)."""
+    nl = n - 1
+    nodes_out = 16 * nl + 4 * (2 * n - 1) + 4 * nl
+    return {
+        "lbvh_keys": n * (4 * d + 4) + 8 * d,
+        "lbvh_nodes": 4 * n + nodes_out,
+        "lbvh_refit": (4 * n * d + 8 * n + 8 * nl + 4 * (2 * n - 1) + 4 * nl
+                       + 4 * n * d + 4 * n + 8 * d * nl),
+        "lbvh_depth": 8 * nl + 4,
+    }
+
+
+def bits(E, out) -> tuple:
+    """The outputs with float tensors as their int32 bits."""
+    t = E.torch
+    return tuple(x.view(t.int32) if x.dtype == t.float32 else x
+                 for x in out)
+
+
+def cuda_ms_after(E, prep, fn, reps: int = 5) -> float:
+    """cuda_ms with ``prep()`` before each launch, outside the timed span."""
+    prep()
+    fn()
+    runs = []
+    for _ in range(reps):
+        prep()
+        runs.append(timed_once(E, fn)[0])
+    return statistics.median(runs)
+
+
+def times_lbvh(E, name, run, stack_run):
+    """The LBVH kernels on the bvh/device run's build input (its
+    lbvh_keys call), each beside its plain version on the same inputs;
+    lbvh_keys also held to morton_encode_plain of the quantized cells, and
+    morton_encode timed on those (its A side); lbvh_depth's launches are
+    the bvh-stack run's."""
+    t, L = E.torch, E.lbvh
+    (pts, lo, hi), kw = run["rec"].keys
+    n, d = pts.shape
+    nb = lbvh_bytes(n, d)
+    out = {}
+    codes = L.lbvh_keys(pts, lo, hi, **kw)
+    q = quantized(E, pts, lo, hi)
+    same(E, f"lbvh_keys @ {name} vs morton_encode_plain of the cells",
+         codes, E.morton.morton_encode_plain(q, dims=kw["dims"]))
+    ms = cuda_ms(E, lambda: L.lbvh_keys(pts, lo, hi, **kw))
+    plain_ms, p = timed_once(E, lambda: L.lbvh_keys_plain(pts, lo, hi, **kw))
+    out["lbvh_keys"] = row(
+        "lbvh_keys", run["launches"]["lbvh_keys"], ms, plain_ms,
+        bound(0, nb["lbvh_keys"]), max_err(codes, p), plain_shapes="full",
+        points=n, dims=kw["dims"],
+        previous=times_morton(E, q, kw["dims"]))
+    sorted_codes, order = t.sort(codes, stable=True)
+    nodes = L.lbvh_nodes(sorted_codes)
+    ms = cuda_ms(E, lambda: L.lbvh_nodes(sorted_codes))
+    plain_ms, pn = timed_once(E, lambda: L.lbvh_nodes_plain(sorted_codes))
+    out["lbvh_nodes"] = row(
+        "lbvh_nodes", run["launches"]["lbvh_nodes"], ms, plain_ms,
+        bound(0, nb["lbvh_nodes"]), max_err(tuple(nodes), tuple(pn)),
+        plain_shapes="full", points=n)
+    ms = cuda_ms_after(E, nodes.arrivals.zero_,
+                       lambda: L.lbvh_refit(pts, order, nodes))
+    nodes.arrivals.zero_()
+    fit = L.lbvh_refit(pts, order, nodes)
+    plain_ms, pf = timed_once(E, lambda: L.lbvh_refit_plain(pts, order, pn))
+    out["lbvh_refit"] = row(
+        "lbvh_refit", run["launches"]["lbvh_refit"], ms, plain_ms,
+        bound(0, nb["lbvh_refit"]), max_err(bits(E, fit), bits(E, pf)),
+        plain_shapes="full", points=n)
+    ms = cuda_ms(E, lambda: L.lbvh_depth(nodes.left, nodes.right))
+    plain_ms, pd = timed_once(
+        E, lambda: L.lbvh_depth_plain(nodes.left, nodes.right))
+    out["lbvh_depth"] = row(
+        "lbvh_depth", stack_run["launches"]["lbvh_depth"], ms, plain_ms,
+        bound(0, nb["lbvh_depth"]),
+        max_err(L.lbvh_depth(nodes.left, nodes.right), pd),
+        plain_shapes="full", points=n, depth=int(pd[0]))
+    return out
 
 
 def profile_device(E, fn):
@@ -2478,7 +2738,7 @@ def phase_times(E, runs):
         per_ds["hash_sweep"] = times_hash(E, name, r["grid-hash"],
                                           r["grid/device"])
         per_ds["cross_sweep"] = times_cross(E, name, r["serve"])
-        per_ds["morton_encode"] = times_morton(E, name, r["bvh/device"])
+        per_ds.update(times_lbvh(E, name, r["bvh/device"], r["bvh-stack"]))
         per_ds["bvh_level"] = times_bvh_level(E, name, r["bvh/device"])
         for kname, d in per_ds.items():
             # launches: every counted path run of this dataset
@@ -2536,9 +2796,17 @@ def phase_times(E, runs):
             f"kernel {v['run_kernel_ms']:.3f} ms in {v['run_launches']} "
             f"launches, {v['run_parents']} parent entries; launches by path "
             f"{v['launches_by_path']}")
-        m = per_ds["morton_encode"]
-        log(f"    morton_encode @ {name}: {m['points']} points, launches by "
-            f"path {m['launches_by_path']}")
+        b = E.lbvh_stats[name]
+        log(f"    LBVH build @ {name}: {per_ds['lbvh_keys']['points']} points;"
+            f" the engines' build {b['tree_ms']:.3f} ms on the host, "
+            f"{b['kernels']} kernel launches and {b['ops']} device "
+            f"operations a build_bvh; kernel ms keys / nodes / refit / "
+            f"depth " + " / ".join(
+                f"{per_ds[k]['ms']:.4f}" for k in
+                ("lbvh_keys", "lbvh_nodes", "lbvh_refit", "lbvh_depth"))
+            + "; launches by path " + json.dumps(
+                {k: per_ds[k]["launches_by_path"] for k in
+                 ("lbvh_keys", "lbvh_depth")}))
     return per
 
 
@@ -2546,7 +2814,7 @@ def kernels_line(per) -> dict:
     """The kernels JSON: per-call numbers at the roadnet2d full-size shapes,
     launches summed over every full-size path run on both datasets (per
     path under ``per_dataset``), every dataset under ``per_dataset``. Rows
-    7 and 8 carry the kernel they replaced on the paths under
+    6, 7 and 8 carry the kernel they replaced on the paths under
     ``previous`` (its own numbers of this run)."""
     out = []
     for kname, rows in per.items():
@@ -2563,7 +2831,7 @@ def kernels_line(per) -> dict:
         if kname in PREVIOUS:
             prev = {ds: r["previous"] for ds, r in rows.items()}
             entry["previous"] = dict(
-                name=PREVIOUS[kname], source=KERNELS[kname][0],
+                name=PREVIOUS[kname][0], source=PREVIOUS[kname][1],
                 launches=0, ms=prev[FULL[0][0]]["ms"],
                 plain_ms=prev[FULL[0][0]]["plain_ms"],
                 bound_ms=prev[FULL[0][0]]["bound_ms"],
@@ -2615,6 +2883,7 @@ def main() -> int:
                     log(f"    {line.strip()}")
     timed("build", build)
     timed("kernel parity", phase_parity, E)
+    timed("LBVH build parity", phase_lbvh, E)
     timed("whole path, reduced size", phase_reduced, E)
     runs = timed("whole path, full size", phase_full, E)
     per = timed("kernel times", phase_times, E, runs)

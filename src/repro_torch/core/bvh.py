@@ -21,7 +21,7 @@ Two traversal engines share the structure:
     driver.
   * ``bvh-stack`` — per-query stack traversal in lockstep: every query
     steps until the slowest is done. The FDBSCAN baseline. It runs no
-    kernel apart from ``morton_encode`` in its build.
+    kernel apart from those of its build (``lbvh_*``).
 
 The one place where the port departs from the reference's loop structure
 is ``wavefront_sweep``. The reference expands each level in fixed tiles of
@@ -51,8 +51,9 @@ Implementation notes (as in the reference):
     any root → leaf path and tree depth never exceeds 64;
     ``max_leaf_depth`` computes the exact bound and the stack engine
     raises at build time if its stack could overflow;
-  * internal-node AABBs come from a range min/max table over the sorted
-    points (every Karras node covers a contiguous leaf range).
+  * internal-node AABBs are fitted bottom up on the card (the refit's
+    plain version is the reference's range min/max table over the sorted
+    points: every Karras node covers a contiguous leaf range).
 """
 from __future__ import annotations
 
@@ -67,6 +68,7 @@ import numpy as np
 import torch
 
 from ..kernels import bvh_sweep as _bvhk
+from ..kernels import lbvh as _lbvh
 from ..kernels import ops
 from ..kernels.ref import INT_MAX, _dist2, eps2_tensor
 from . import engines
@@ -107,55 +109,6 @@ class BVHState(NamedTuple):
 # Node id encoding: internal nodes are 0..n-2; leaf i is (n-1) + i.
 
 
-def _clz(x: torch.Tensor) -> torch.Tensor:
-    """Leading zeros of non-negative int32 values (32 for 0): ``frexp``
-    gives the exponent e with x = m·2^e, m ∈ [0.5, 1), exactly in f64."""
-    return 32 - torch.frexp(x.to(torch.float64)).exponent
-
-
-def _floor_log2(x: torch.Tensor) -> torch.Tensor:
-    """⌊log₂ x⌋ of positive int32 values, as the reference's 31 − clz."""
-    return 31 - _clz(x)
-
-
-def _delta_fn(codes, idx, n):
-    """δ(i, j): common-prefix length of augmented keys, −1 out of range."""
-
-    def delta(i, j):
-        ok = (j >= 0) & (j < n)
-        jc = j.clamp(0, n - 1)
-        x = codes[i] ^ codes[jc]
-        d = torch.where(x != 0, _clz(x), 32 + _clz(idx[i] ^ idx[jc]))
-        return torch.where(ok, d, -1)
-
-    return delta
-
-
-def _range_table_query(values, first, last, reduce):
-    """``reduce`` (``torch.minimum`` or ``torch.maximum``) of
-    ``values[first..last]`` per node: the reference's sparse table — level
-    k holds the reduction over [i, i + 2^k) (the last row repeated past
-    the end) — answered as reduce(tab_k[first], tab_k[last − 2^k + 1]) at
-    k = ⌊log₂ span⌋. The levels are built one at a time, each answering
-    its own nodes, so only one level is held at once."""
-    n = values.shape[0]
-    levels = max(1, int(np.ceil(np.log2(max(n, 2)))))
-    kk = _floor_log2(last - first + 1)
-    a = first.long()
-    out = None
-    tab = values
-    for k in range(levels + 1):
-        if k:
-            h = 1 << (k - 1)
-            tail = tab[-1:].expand((min(h, n),) + tuple(tab.shape[1:]))
-            tab = reduce(tab, torch.cat([tab[h:], tail])[:n])
-        b = (last - (1 << k) + 1).clamp(min=0).long()
-        got = reduce(tab[a], tab[b])
-        sel = (kk == k).reshape((-1,) + (1,) * (values.dim() - 1))
-        out = got if out is None else torch.where(sel, got, out)
-    return out
-
-
 def build_bvh(points: torch.Tensor, *, dims: int = 3, lo=None,
               hi=None) -> BVH:
     """points (n, D) f32, n ≥ 2. ``lo``/``hi`` override the quantization
@@ -164,86 +117,37 @@ def build_bvh(points: torch.Tensor, *, dims: int = 3, lo=None,
 
     For D > 3 the Morton order uses the first three coordinates only: the
     sort is a locality heuristic, and the boxes, payload ranges and sphere
-    refine use all D coordinates."""
-    dev = points.device
-    n = points.shape[0]
-    f32 = torch.float32
-    lo = points.amin(dim=0) if lo is None \
-        else torch.as_tensor(lo, dtype=f32, device=dev)
-    hi = points.amax(dim=0) if hi is None \
-        else torch.as_tensor(hi, dtype=f32, device=dev)
-    # a tensor numerator: ``1023.0 / t`` would be computed as a reciprocal
-    # times 1023, which is not the reference's division
-    top = torch.tensor(1023.0, dtype=f32, device=dev)
-    scale = torch.where(hi > lo, top / (hi - lo), 0.0)
-    # clip, then cast: saturates before the cast, as the reference does
-    q = torch.clamp((points - lo) * scale, 0, 1023).to(torch.int32)
-    if q.shape[1] < 3:
-        q3 = ops.pad_to(q, 3, 1, 0)
-    else:
-        q3 = q[:, :3]
-    codes = ops.morton_encode(q3, dims=min(dims, 3))
-    order = torch.argsort(codes, stable=True).to(torch.int32)
-    codes = codes[order.long()]
-    idx = torch.arange(n, dtype=torch.int32, device=dev)
-    pts_sorted = points[order.long()]
-    delta = _delta_fn(codes, idx, n)
+    refine use all D coordinates.
 
-    # Karras's node construction for all n − 1 internal nodes at once
-    i = torch.arange(n - 1, dtype=torch.int64, device=dev)
-    d = torch.where(delta(i, i + 1) >= delta(i, i - 1), 1, -1)
-    dmin = delta(i, i - d)
-    # exponential search for the range length upper bound
-    lmax = torch.full_like(i, 2)
-    for _ in range(31):
-        lmax = torch.where(delta(i, i + lmax * d) > dmin, lmax * 2, lmax)
-    # binary search the exact length
-    l, t = torch.zeros_like(i), lmax >> 1
-    for _ in range(31):
-        cond = (t >= 1) & (delta(i, i + (l + t) * d) > dmin)
-        l, t = torch.where(cond, l + t, l), t >> 1
-    j = i + l * d
-    dnode = delta(i, j)
-    # binary search the split position (n < 2^30: int32 Morton keys)
-    s = torch.zeros_like(i)
-    done = torch.zeros_like(i, dtype=torch.bool)
-    for k in range(1, 31):
-        t = (l + (1 << k) - 1) >> k
-        cond = ~done & (t >= 1) & (delta(i, i + (s + t) * d) > dnode)
-        s = torch.where(cond, s + t, s)
-        done = done | (t <= 1)
-    gamma = i + s * d + d.clamp(max=0)
-    first = torch.minimum(i, j)
-    last = torch.maximum(i, j)
-    left = torch.where(first == gamma, (n - 1) + gamma, gamma)
-    right = torch.where(last == gamma + 1, (n - 1) + gamma + 1, gamma + 1)
-    first, last = first.to(torch.int32), last.to(torch.int32)
-    box_lo = _range_table_query(pts_sorted, first, last, torch.minimum)
-    box_hi = _range_table_query(pts_sorted, first, last, torch.maximum)
-    return BVH(pts_sorted=pts_sorted, order=order,
-               left=left.to(torch.int32), right=right.to(torch.int32),
-               box_lo=box_lo, box_hi=box_hi, first=first, last=last)
+    The reference's build, as kernels (``kernels/lbvh.py``; on the CPU
+    their plain versions): the extent, the Morton keys, a stable sort of
+    the keys, Karras's nodes, then the boxes bottom up."""
+    dev = points.device
+    f32 = torch.float32
+    if lo is None or hi is None:
+        amin, amax = torch.aminmax(points, dim=0)
+    lo = amin if lo is None else torch.as_tensor(lo, dtype=f32, device=dev)
+    hi = amax if hi is None else torch.as_tensor(hi, dtype=f32, device=dev)
+    codes = ops.lbvh_keys(points, lo, hi, dims=min(dims, 3))
+    # stable: equal codes keep their input order, as the reference's
+    # argsort, and the sorted index then breaks the tie (Karras)
+    codes, order = torch.sort(codes, stable=True)
+    nodes = ops.lbvh_nodes(codes)
+    fit = ops.lbvh_refit(points, order, nodes)
+    return BVH(pts_sorted=fit.pts_sorted, order=fit.order, left=nodes.left,
+               right=nodes.right, box_lo=fit.box_lo, box_hi=fit.box_hi,
+               first=nodes.first, last=nodes.last)
 
 
 def max_leaf_depth(left: torch.Tensor, right: torch.Tensor) -> int:
-    """Exact tree depth (root = 0, result = deepest leaf's depth).
+    """Exact tree depth (root = 0, result = deepest leaf's depth), by
+    ``ops.lbvh_depth`` (one host read).
 
-    Depth propagates down one level per iteration; δ-monotonicity bounds
-    Karras depth by 64, so 64 iterations always converge. The DFS stack the
+    δ-monotonicity bounds Karras depth by 64. The DFS stack the
     ``bvh-stack`` engine needs is at most ``max_leaf_depth + 1`` slots (one
     pending sibling per ancestor, plus the two children just pushed).
     """
-    n_int = left.shape[0]
-    depth = torch.zeros(n_int, dtype=torch.int32, device=left.device)
-    kids = [ch.long() for ch in (left, right)]
-    for _ in range(64):
-        child_d = depth + 1
-        for ch in kids:
-            is_int = ch < n_int
-            depth = depth.scatter_reduce(
-                0, torch.where(is_int, ch, 0),
-                torch.where(is_int, child_d, 0), "amax")
-    return int(depth.max()) + 1
+    return int(ops.lbvh_depth(left, right)[0])
 
 
 def bvh_from_arrays(d: dict, device) -> BVH:
@@ -337,8 +241,8 @@ def _node_payload_min(bvh: BVH, croot_sorted: torch.Tensor) -> torch.Tensor:
     """Min core-root payload per combined node (2n−1,): the early-
     termination bound. Internal nodes take the min over their contiguous
     leaf range; recomputed per sweep (the payload changes every round)."""
-    internal = _range_table_query(croot_sorted, bvh.first, bvh.last,
-                                  torch.minimum)
+    internal = _lbvh.range_table_query(croot_sorted, bvh.first, bvh.last,
+                                       torch.minimum)
     return torch.cat([internal, croot_sorted])
 
 
@@ -699,14 +603,23 @@ def _data_fingerprint(points) -> tuple:
     return (p.shape, str(p.dtype), hashlib.sha1(p.tobytes()).hexdigest())
 
 
+def _infer_dims(points: torch.Tensor) -> int:
+    """``neighbors.infer_dims`` on the points' device, with one scalar
+    read: the column count, except 2 for (n, 3) points whose z is all zero
+    (−0.0 included; NaN is not zero)."""
+    d = points.shape[1]
+    if d != 3:
+        return d
+    return 2 if bool((points[:, 2] == 0).all()) else 3
+
+
 def _tree(points: torch.Tensor, dims):
     """(LBVH, dims) of ``points`` on their device; n ≥ 2."""
-    from .neighbors import infer_dims
     n = points.shape[0]
     if n < 2:
         raise ValueError("BVH engines need n >= 2 points")
     if dims is None:
-        dims = infer_dims(points.cpu().numpy())
+        dims = _infer_dims(points)
     return build_bvh(points, dims=dims), dims
 
 

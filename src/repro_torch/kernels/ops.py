@@ -1,4 +1,5 @@
-"""Public wrappers for the sweep kernels and the Morton codes.
+"""Public wrappers for the sweep kernels, the Morton codes and the LBVH
+build.
 
 They keep the reference's signatures and conventions (``starts`` in
 elements, a static ``slab`` capacity, padding with +BIG coordinates and an
@@ -17,6 +18,7 @@ from . import cross_sweep as _cross
 from . import csr_sweep as _csr
 from . import frontier_sweep as _frontier
 from . import gathered_sweep as _gathered
+from . import lbvh as _lbvh
 from . import morton as _morton
 from . import pairwise_sweep as _pairwise
 from .ref import BIG, INT_MAX, pad_to  # noqa: F401  (re-exported)
@@ -204,3 +206,29 @@ def morton_encode(coords, *, dims: int = 3):
     """Morton codes from quantized int32 coords (n, 3) -> (n,) int32."""
     return _morton.morton_encode(coords.to(torch.int32).contiguous(),
                                  dims=dims)
+
+
+def lbvh_keys(points, lo, hi, *, dims: int = 3):
+    """Morton codes (n,) int32 of f32 points (n, D) quantized over the
+    extent [lo, hi] (D,): the LBVH build's keys, in one kernel."""
+    return _lbvh.lbvh_keys(points.to(torch.float32).contiguous(),
+                           lo.to(torch.float32).contiguous(),
+                           hi.to(torch.float32).contiguous(), dims=dims)
+
+
+def lbvh_nodes(codes):
+    """Karras's internal nodes of the sorted codes (n,): ``lbvh.Nodes``."""
+    return _lbvh.lbvh_nodes(codes.to(torch.int32).contiguous())
+
+
+def lbvh_refit(points, order, nodes):
+    """The sorted points, int32 order and node boxes (``lbvh.Refit``) of
+    ``points`` under the sort permutation ``order`` and ``nodes``."""
+    return _lbvh.lbvh_refit(points.to(torch.float32).contiguous(),
+                            order.to(torch.int64).contiguous(), nodes)
+
+
+def lbvh_depth(left, right):
+    """The depth of a Karras tree's deepest leaf, as a (1,) int32 tensor."""
+    return _lbvh.lbvh_depth(left.to(torch.int32).contiguous(),
+                            right.to(torch.int32).contiguous())

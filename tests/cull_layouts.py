@@ -1,8 +1,10 @@
 """Layouts built to be culled by the slab sweep kernels' skip, shared by
 the plain-version tests (``test_torch_csr_cull.py``,
 ``test_torch_frontier_cross_cull.py``) and the card parity tests
-(``test_torch_card_parity.py``). numpy and torch only, so that the card
-tests run where JAX is not installed."""
+(``test_torch_card_parity.py``); and the point sets of the LBVH build's
+tests (``lbvh_cases``: ``test_torch_lbvh.py`` and the card parity tests).
+numpy and torch only, so that the card tests run where JAX is not
+installed."""
 import numpy as np
 
 from repro_torch.kernels import csr_sweep as tcsr
@@ -120,3 +122,44 @@ def lattice_counts(q, pts, eps2):
     on the 1/8 lattice, so any order of the sum gives the same d²)."""
     d2 = ((q[:, None, :] - pts[None, :, :]) ** 2).sum(-1)
     return (d2 <= np.float32(eps2)).sum(1).astype(np.int32)
+
+
+def lbvh_cases():
+    """(name, points (n, D) f32, dims, lo, hi) of the LBVH build's tests:
+    n = 2, 3, 5, 1,023 and 4,097; 2-D data in (n, 3) with z = 0 and in
+    (n, 2), 3-D and 4-D; all points equal; heavy duplicates; +1e30
+    sentinel rows under a ``lo``/``hi`` override of the real extent (else
+    None, None); coordinates that hold both -0.0 and +0.0."""
+    rng = np.random.default_rng(18)
+
+    def uni(n, d):
+        return rng.uniform(-1, 1, (n, d)).astype(np.float32)
+
+    flat = uni(4097, 3)
+    flat[:, 2] = 0
+    dups = uni(50, 3)[rng.integers(0, 50, 4097)]
+    sent = uni(1023, 3)
+    lo, hi = sent[:900].min(0), sent[:900].max(0)
+    sent[900:] = 1e30
+    zeros = np.stack([rng.choice(np.float32([-0.0, 0.0, 1, 2]), 1023),
+                      rng.choice(np.float32([-0.0, 0.0, -1, -2]), 1023),
+                      rng.choice(np.float32([-0.0, 0.0]), 1023)], axis=1)
+    same = np.tile(np.float32([[0.25, -3.0, 7.5]]), (1023, 1))
+    cases = [
+        ("n2", uni(2, 3), 3, None, None),
+        ("n3", uni(3, 3), 3, None, None),
+        ("n5-2d-in-3", flat[:5], 2, None, None),
+        ("n1023-2d", uni(1023, 2), 2, None, None),
+        ("n1023-4d", uni(1023, 4), 4, None, None),
+        ("n4097-3d", uni(4097, 3), 3, None, None),
+        ("n4097-2d-in-3", flat, 2, None, None),
+        ("n5-equal", same[:5], 3, None, None),
+        ("n1023-equal", same, 3, None, None),
+        ("n2-equal", same[:2], 3, None, None),
+        ("dups", dups.astype(np.float32), 3, None, None),
+        ("sentinels", sent, 3, lo, hi),
+        ("signed-zero", zeros.astype(np.float32), 3, None, None),
+        ("signed-zero-2d", zeros[:, :2].copy(), 2, None, None),
+    ]
+    return [(name, np.ascontiguousarray(p, np.float32), dims, lo, hi)
+            for name, p, dims, lo, hi in cases]

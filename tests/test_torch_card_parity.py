@@ -10,7 +10,14 @@ on small grids with aliased buckets and pairs at d² = ε² (and the float
 below); the fused BVH level, every level against ``bvh_level_plain`` and
 every traversal against the ``bvh_batch_sweep`` level loop, exact and
 terminated, D = 2 and 3, with a capacity that overflows and a probe that
-stops there: counts, minroot, overflow and histogram.
+stops there: counts, minroot, overflow and histogram. The LBVH build's
+kernels (``lbvh_keys``, ``lbvh_nodes``, ``lbvh_refit``, ``lbvh_depth``)
+and the whole ``build_bvh`` of a CUDA tensor against the plain versions
+on the same tensors and against the CPU build, every field bitwise
+(``cull_layouts.lbvh_cases``: the edge sizes, duplicates, sentinels and
+signed zeros). And ``csr_sweep``, ``csr_sweep_counts`` (the culled
+layouts), ``pairwise_sweep``, ``gathered_sweep``, ``morton_encode`` and
+``bvh_batch_sweep`` against their plain versions.
 
 Every test here is marked ``cuda`` and skips, with its reason, where torch
 sees no CUDA device. It imports neither JAX nor the JAX package, so it
@@ -24,15 +31,21 @@ import pytest
 import torch
 
 from cull_layouts import (EPS, EQ_BELOW, culled_layout, lattice_cloud,
-                          lattice_counts, payload, with_padding_tiles)
+                          lattice_counts, lbvh_cases, payload,
+                          with_padding_tiles)
 from repro_torch import make_engine
 from repro_torch.core import bvh as tbvh
 from repro_torch.core import grid as tgrid
 from repro_torch.data import synth
 from repro_torch.kernels import bvh_sweep as tsweep
 from repro_torch.kernels import cross_sweep as tcross
+from repro_torch.kernels import csr_sweep as tcsr
 from repro_torch.kernels import frontier_sweep as tfrontier
 from repro_torch.kernels import gathered_sweep as tgathered
+from repro_torch.kernels import lbvh as tlbvh
+from repro_torch.kernels import morton as tmorton
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import pairwise_sweep as tpairwise
 
 INT_MAX = np.iinfo(np.int32).max
 LAYOUTS = [(d, bq, bk) for d in (2, 3) for bq, bk in ((32, 128), (64, 512))]
@@ -197,3 +210,162 @@ def test_bvh_level_traversal_is_the_plain_loop(card, monkeypatch, mode, dims,
     assert f[2] == a[2] == (cap != "fits")
     ran = int((a[3] >= 0).sum())
     assert ran <= len(levels) <= ran + 1
+
+
+LBVH_CASES = lbvh_cases()
+LBVH_IDS = [c[0] for c in LBVH_CASES]
+
+
+def _bitwise(k, p):
+    """``_same`` on the bits: -0.0 and +0.0 differ."""
+    if k.dtype == torch.float32:
+        k, p = k.view(torch.int32), p.view(torch.int32)
+    _same(k, p)
+
+
+def _extent(t, lo, hi):
+    dev = t.device
+    return (t.amin(0) if lo is None else torch.as_tensor(lo, device=dev),
+            t.amax(0) if hi is None else torch.as_tensor(hi, device=dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,pts,dims,lo,hi", LBVH_CASES, ids=LBVH_IDS)
+def test_lbvh_kernels_are_their_plain_versions(card, name, pts, dims, lo,
+                                               hi):
+    t = torch.as_tensor(pts, device=card)
+    lo_t, hi_t = _extent(t, lo, hi)
+    tlbvh.reset_launches()
+    codes = tlbvh.lbvh_keys(t, lo_t, hi_t, dims=min(dims, 3))
+    _same(codes, tlbvh.lbvh_keys_plain(t, lo_t, hi_t, dims=min(dims, 3)))
+    codes, order = torch.sort(codes, stable=True)
+    nodes = tlbvh.lbvh_nodes(codes)
+    plain = tlbvh.lbvh_nodes_plain(codes)
+    for a, b in zip(nodes, plain):
+        _same(a, b)
+    fit = tlbvh.lbvh_refit(t, order, nodes)
+    for a, b in zip(fit, tlbvh.lbvh_refit_plain(t, order, plain)):
+        _bitwise(a, b)
+    _same(tlbvh.lbvh_depth(nodes.left, nodes.right),
+          tlbvh.lbvh_depth_plain(nodes.left, nodes.right))
+    assert set(tlbvh.LAUNCHES.values()) == {1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,pts,dims,lo,hi", LBVH_CASES, ids=LBVH_IDS)
+def test_build_bvh_on_the_card_is_the_plain_build(card, name, pts, dims, lo,
+                                                  hi):
+    t = torch.as_tensor(pts, device=card)
+    tlbvh.reset_launches()
+    tree = tbvh.build_bvh(t, dims=dims, lo=lo, hi=hi)
+    depth = tbvh.max_leaf_depth(tree.left, tree.right)
+    assert tlbvh.LAUNCHES == {"lbvh_keys": 1, "lbvh_nodes": 1,
+                              "lbvh_refit": 1, "lbvh_depth": 1}
+    lo_t, hi_t = _extent(t, lo, hi)
+    codes = tlbvh.lbvh_keys_plain(t, lo_t, hi_t, dims=min(dims, 3))
+    codes, order = torch.sort(codes, stable=True)
+    nodes = tlbvh.lbvh_nodes_plain(codes)
+    fit = tlbvh.lbvh_refit_plain(t, order, nodes)
+    plain = dict(nodes._asdict(), **fit._asdict())
+    cpu = tbvh.build_bvh(torch.as_tensor(pts), dims=dims, lo=lo, hi=hi)
+    for f in tbvh.BVH._fields:
+        _bitwise(getattr(tree, f), plain[f])
+        _bitwise(getattr(tree, f).cpu(), getattr(cpu, f))
+    assert depth == int(tlbvh.lbvh_depth_plain(nodes.left, nodes.right)[0])
+    assert depth == tbvh.max_leaf_depth(cpu.left, cpu.right)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("eps2", EQ_BELOW, ids=["eq", "below"])
+@pytest.mark.parametrize("layout", LAYOUTS, ids=IDS)
+def test_csr_sweeps_are_their_plain_versions(card, layout, eps2):
+    dims, bq, bk = layout
+    args, kinds = culled_layout(dims, bq, bk, seed=dims)
+    q, cp, croot, st, nb = (torch.as_tensor(x, device=card) for x in args)
+    kw = dict(max_blocks=len(kinds), block_k=bk)
+    k = tcsr.csr_sweep(q, cp, croot, st, nb, eps2, block_q=bq, **kw)
+    p = tcsr.csr_sweep_plain(q, cp, croot, st, nb, eps2, **kw)
+    for a, b in zip(k, p):
+        _same(a, b)
+    kc = tcsr.csr_sweep_counts(q, cp, st, nb, eps2, block_q=bq, **kw)
+    _same(kc, tcsr.csr_sweep_counts_plain(q, cp, st, nb, eps2, **kw))
+    _same(kc, k[0])
+    assert int(k[0][:bq].sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nq,nc", [(1, 1), (7, 513), (256, 512), (513, 257)])
+def test_pairwise_sweep_is_its_plain_version(card, nq, nc):
+    rng = np.random.default_rng(nq)
+    q = rng.uniform(-1, 1, (nq, 3)).astype(np.float32)
+    c = rng.uniform(-1, 1, (nc, 3)).astype(np.float32)
+    core = rng.uniform(size=nc) < 0.5
+    root = rng.integers(0, nc, nc).astype(np.int32)
+    args = tops.pairwise_sweep_args(
+        *(torch.as_tensor(x, device=card) for x in (q, c, core, root)))
+    k = tpairwise.pairwise_sweep(*args, 0.3)
+    p = tpairwise.pairwise_sweep_plain(*args, 0.3)
+    for a, b in zip(k, p):
+        _same(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,k", [(1, 1), (128, 512), (130, 100), (3, 700)])
+def test_gathered_sweep_is_its_plain_version(card, b, k):
+    rng = np.random.default_rng(b + k)
+    arrays = (rng.uniform(-1, 1, (b, 3)).astype(np.float32),
+              rng.uniform(-1, 1, (b, k, 3)).astype(np.float32),
+              rng.uniform(size=(b, k)) < 0.8,
+              rng.uniform(size=(b, k)) < 0.5,
+              rng.integers(0, 9999, (b, k)).astype(np.int32))
+    args = tops.gathered_sweep_args(
+        *(torch.as_tensor(x, device=card) for x in arrays))
+    k_out = tgathered.gathered_sweep(*args, 0.2)
+    p_out = tgathered.gathered_sweep_plain(*args, 0.2)
+    for a, b_ in zip(k_out, p_out):
+        _same(a, b_)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims", [2, 3])
+@pytest.mark.parametrize("n", [1, 5, 1_023, 4_097])
+def test_morton_encode_is_its_plain_version(card, dims, n):
+    hi = 1 << 15 if dims == 2 else 1 << 10
+    c = np.random.default_rng(n).integers(0, hi, (n, 3)).astype(np.int32)
+    edge = np.array([[hi - 1] * 3, [0, 0, 0], [hi, hi + 1, 3 * hi],
+                     [-1, -hi, 5], [hi - 1, 0, hi - 1]], np.int32)
+    c[:min(n, 5)] = edge[:min(n, 5)]
+    t = torch.as_tensor(c, device=card)
+    _same(tmorton.morton_encode(t, dims=dims),
+          tmorton.morton_encode_plain(t, dims=dims))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("payload", [False, True])
+@pytest.mark.parametrize("bf16", [True, False])
+@pytest.mark.parametrize("e,dims", [(1, 3), (129, 3), (300, 2), (256, 6)])
+def test_bvh_batch_sweep_is_its_plain_version(card, e, dims, bf16, payload):
+    rng = np.random.default_rng(e + dims)
+    B = 8
+    q = rng.uniform(-1, 1, (e, B, dims)).astype(np.float32)
+    a = rng.uniform(-1, 1, (e, dims)).astype(np.float32)
+    b = a + rng.uniform(0, 0.5, (e, dims)).astype(np.float32)
+    lo = torch.as_tensor(np.minimum(a, b) - 0.25)
+    hi = torch.as_tensor(np.maximum(a, b) + 0.25)
+    if bf16:
+        lo = tbvh._bf16_directed(lo, up=False)
+        hi = tbvh._bf16_directed(hi, up=True)
+    ints = [rng.integers(0, 9999, e).astype(np.int32),
+            rng.integers(0, 9999, e).astype(np.int32),
+            (rng.uniform(size=e) < 0.5).astype(np.int32),
+            rng.integers(0, 9999, (e, B)).astype(np.int32)]
+    croot, nmin, leaf, bound = (torch.as_tensor(x, device=card)
+                                for x in ints)
+    args = [torch.as_tensor(q, device=card), lo.to(card), hi.to(card),
+            torch.as_tensor(a, device=card), croot,
+            nmin if payload else None, leaf, bound if payload else None]
+    kw = dict(bf16_prune=bf16, prune_payload=payload)
+    k = tsweep.bvh_batch_sweep(*args, 0.09, **kw)
+    p = tsweep.bvh_batch_sweep_plain(*args, 0.09, **kw)
+    for x, y in zip(k, p):
+        _same(x, y)
