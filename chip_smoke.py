@@ -10,9 +10,11 @@ engine (``hash_sweep``), on the ``brute`` engine, on the wavefront BVH
 engine (``bvh``, ``bvh_level``) with the ``device`` and ``frontier``
 drivers, on the stack BVH engine
 (``bvh-stack``) and through the FDBSCAN baseline with its early exit
-(``fdbscan``); and single-session serving (``serve``: ``build_snapshot``,
+(``fdbscan``); single-session serving (``serve``: ``build_snapshot``,
 ``assign``, ``ServeSession.ingest`` with compaction, snapshot save and
-load). Phases:
+load); the sharded serving tier (``tier``: ``ShardedTier``, its assign,
+ingest, compaction, partial gathers, recovery and hedged legs); and the
+paper's fig. 4 systems (DClust, grid, FDBSCAN, G-DBSCAN, brute). Phases:
 
   1. environment: the card's name and power limit (nvidia-smi);
   2. build: every kernel source in src/repro_torch/csrc, one nvcc each,
@@ -90,7 +92,25 @@ load). Phases:
      hash_sweep call of the grid-hash run against its plain version and
      the gathered_sweep path, and an exact and a terminated traversal with
      the run's final payload, every level against bvh_level_plain and the
-     outputs against the bvh_batch_sweep loop;
+     outputs against the bvh_batch_sweep loop. After each dataset's serve
+     run, the sharded tier on its snapshot (4 shards, a replica of shard
+     0, warmup): an assign of the same 32,768 fresh points, labels,
+     counts and dist bit-identical to the single-session assign; the same
+     2,048-point ingests until the tier compacts once, its labels and
+     core reassembled from the shards bit-identical to dbscan on the
+     corpus plus the folded chunks in arrival order, and an assign then
+     equal to the single-session assign on that corpus; shard 1's only
+     copy forced down, the partial assign equal to the restriction of the
+     merge to the live shards; recover_shard(1), the answers
+     bit-identical again; a hedged leg on shard 0 (its primary suspect)
+     with the bits of an unhedged one; each step's host seconds, the legs
+     per query and the phase's launches by kernel (exactly the serve
+     path's four kernels);
+  5b. the paper's fig. 4 systems at benchmarks/figures.py:57's full size
+     (roadnet2d 16,384, minPts 8, ε 0.01, 0.02, 0.04): DClust, grid,
+     FDBSCAN, G-DBSCAN and brute, each launching exactly its kernels
+     (G-DBSCAN none), core equal across systems, labels equivalent to
+     grid's, DClust's rounds at least grid's, each system's seconds;
   6. kernel times at the full-size shapes of each kernel's path (median of
      5 launches, CUDA events), beside the plain version's time and the
      least time the card could take (bound; for the four slab sweeps that
@@ -113,7 +133,9 @@ load). Phases:
      level's count, its bytes bound and the per-entry kernel's, with
      bvh_batch_sweep at the widest level and its whole level loop beside
      it. Rows 6, 7 and 8 of the kernels line (lbvh_keys, bvh_level,
-     hash_sweep) carry those A-side numbers under ``previous``.
+     hash_sweep) carry those A-side numbers under ``previous``. A
+     kernel's ``launches`` sum every counted path run of phases 5 and 5b
+     (the tier and fig. 4 included).
 
 Before the last line it prints one ``{"kernels": [...]}`` JSON line; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -194,6 +216,18 @@ INGEST_CHUNK = 2_048  # points per ingest at full size
 DELTA_CAP = 16_384    # the session's delta_capacity at full size
 REDUCED_SERVE = (4_096, 4, 1_024)  # assign points, ingests, points each
 PREDICT_CHECK = 4_096  # assigned points held against brute-force predict
+# the sharded tier at full size: shards of the serve path's snapshot, each
+# shard's delta capacity a quarter of the session's (so the same ingests
+# fill one shard's buffer and the tier compacts once), shard 1 forced down
+TIER_SHARDS = 4
+TIER_DOWN = 1
+# the paper's fig. 4 (benchmarks/figures.py:57 at its full size): one
+# dataset and n, an ε sweep, the systems and the kernels each launches
+FIG4 = ("roadnet2d", 16_384, 8, (0.01, 0.02, 0.04))
+FIG4_SYSTEMS = {"dclust": ("csr_sweep",),
+                "grid": ("csr_sweep_counts", "csr_sweep"),
+                "fdbscan": STACK_KERNELS, "gdbscan": (),
+                "brute": ("pairwise_sweep",)}
 KERNELS = {  # name: (source, the TPU kernel it replaces)
     "csr_sweep": ("src/repro_torch/csrc/csr_sweep.cu",
                   "src/repro/kernels/csr_sweep.py:146"),
@@ -270,8 +304,8 @@ class Env:
 
         import repro_torch
         from repro_torch import serve
-        from repro_torch.baselines import fdbscan
-        from repro_torch.core import bvh, grid, neighbors
+        from repro_torch.baselines import dclust, fdbscan, gdbscan
+        from repro_torch.core import bvh, grid, labels, neighbors
         from repro_torch.kernels import (build, bvh_sweep, cross_sweep,
                                          csr_sweep, frontier_sweep,
                                          gathered_sweep, lbvh, morton, ops,
@@ -283,6 +317,7 @@ class Env:
         self.pairwise, self.gathered = pairwise_sweep, gathered_sweep
         self.cross, self.serve, self.snapshot = cross_sweep, serve, snapshot
         self.nb, self.bvh, self.fdbscan = neighbors, bvh, fdbscan
+        self.dclust, self.gdbscan, self.labels = dclust, gdbscan, labels
         self.grid = grid
         self.bvhk, self.morton, self.lbvh = bvh_sweep, morton, lbvh
         self.modules = (csr_sweep, frontier_sweep, pairwise_sweep,
@@ -1787,7 +1822,225 @@ def serve_full(E, name, n, eps, min_pts, pts_np):
     return dict(launches=launches, rec=rec, marks=marks, steps=steps,
                 ingest_s=ingest_s, wall=wall, eps2=float(eps) ** 2,
                 bucket=a.bucket, slab=(slab_plan, slab_assign),
-                regrows=sched.regrows)
+                regrows=sched.regrows, snap=snap, q=q_np, chunks=chunks,
+                answer=a)
+
+
+def tier_global(E, tier):
+    """The tier's labels and core in canonical corpus order, reassembled
+    from its shards through their label tables."""
+    n = sum(p.n for p in tier.parts)
+    lab = np.full(n, -2, np.int64)
+    core = np.zeros(n, bool)
+    for p in tier.parts:
+        loc = p.snapshot.labels.cpu().numpy()
+        g = np.full(len(loc), -1, np.int64)
+        if p.label_table.size:
+            m = loc >= 0
+            g[m] = p.label_table.astype(np.int64)[loc[m]]
+        lab[p.orig_index] = g
+        core[p.orig_index] = p.snapshot.core.cpu().numpy()
+    check((lab != -2).all(), "tier: shard rows do not partition the corpus")
+    return lab, core
+
+
+def restricted_merge(E, tier, q, alive):
+    """The full merge minus the missing shards: per-shard single-snapshot
+    assigns of the routed queries and the router's remap and merge."""
+    mask = tier.map.window_shards(q)
+    big = np.iinfo(np.int64).max
+    counts = np.zeros(len(q), np.int32)
+    merged = np.full(len(q), big, np.int64)
+    dist = np.full(len(q), np.inf, np.float32)
+    for j in alive:
+        idx = np.nonzero(mask[:, j])[0]
+        if idx.size == 0:
+            continue
+        r = E.serve.assign(tier.parts[j].snapshot, q[idx])
+        table = tier.parts[j].label_table.astype(np.int64)
+        glab = (np.where(r.labels >= 0, table[np.clip(r.labels, 0, None)],
+                         big) if table.size else np.full(idx.size, big))
+        merged[idx] = np.minimum(merged[idx], glab)
+        counts[idx] += r.counts
+        dist[idx] = np.minimum(dist[idx], r.dist)
+    labels = np.where(merged != big, merged, -1).astype(np.int32)
+    return labels, counts, dist
+
+
+def tier_full(E, name, n, eps, min_pts, pts_np, sv):
+    """The sharded tier at full size, on the serve path's snapshot: split
+    into TIER_SHARDS shards, a replica of shard 0, warmup; an assign of the
+    serve path's fresh points (bit-identical to the single-session assign);
+    the serve path's ingests until the tier compacts once; shard TIER_DOWN
+    forced down (a partial assign, the exact restriction to the live
+    shards), recovered (bit-identical again); a hedged leg on shard 0 (the
+    same bits as an unhedged one). Launch counts cover exactly this; the
+    checks after it launch nothing that is counted."""
+    t = E.torch
+    snap, q_np, single = sv["snap"], sv["q"], sv["answer"]
+    steps = {}
+
+    def step(label, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        t.cuda.synchronize()
+        steps[label] = time.perf_counter() - t0
+        return out
+
+    t.cuda.synchronize()
+    E.reset_launches()
+    t_start = time.perf_counter()
+    tier = step("split", lambda: E.serve.ShardedTier.from_snapshot(
+        snap, n_shards=TIER_SHARDS, delta_capacity=DELTA_CAP // TIER_SHARDS,
+        max_delta_frac=np.inf, auto_recover=False))
+    try:
+        check(tier.n_shards == TIER_SHARDS,
+              f"{name} tier: {tier.n_shards} shards, not {TIER_SHARDS}")
+        step("replicate", lambda: tier.replicate(0, 1))
+        step("warmup", lambda: tier.warmup())
+        tier.scheduler.reset_stats()
+        full = step("assign", lambda: tier.assign(q_np))
+        routed = dict(sorted(tier.scheduler.routed.items()))
+        ingest_s, k = [], 0
+        for c in sv["chunks"]:
+            res = step("ingest", lambda: tier.ingest(c))
+            ingest_s.append(steps["ingest"])
+            k += 1
+            if tier.n_compactions:
+                break
+        check(tier.n_compactions == 1, f"{name} tier: {tier.n_compactions} "
+              f"compactions after {k} ingests")
+        folded = tier.n_baseline - n
+        after = step("assign_compacted", lambda: tier.assign(q_np))
+        tier.health.force_down((TIER_DOWN, 0))
+        part = step("assign_partial", lambda: tier.assign(q_np))
+        ok = step("recover_shard", lambda: tier.recover_shard(TIER_DOWN))
+        back = step("assign_recovered", lambda: tier.assign(q_np))
+        aimed = q_np[tier.map.window_shards(q_np)[:, 0]]
+        plain = step("assign_unhedged", lambda: tier.assign(aimed))
+        tier.health.record_failure((0, 0))          # the primary: suspect
+        h0 = tier.scheduler.hedges
+        for _ in range(2):       # the turn reaches the primary within two
+            hedged = step("assign_hedged", lambda: tier.assign(aimed))
+            if tier.scheduler.hedges > h0:
+                break
+        wall = time.perf_counter() - t_start
+        launches = E.launches()
+    finally:
+        tier.close()
+    check(all(launches[k2] > 0 for k2 in SERVE_KERNELS) and
+          all(v == 0 for k2, v in launches.items() if k2 not in SERVE_KERNELS),
+          f"{name} tier: launches {launches}, expected exactly "
+          f"{SERVE_KERNELS}")
+    # checks, outside the counted run
+    check(not full.partial and same_answer(full, single),
+          f"{name} tier: assign differs from the single-session assign")
+    corpus = np.concatenate([pts_np] + sv["chunks"][:k])[:n + folded]
+    check(folded > 0 and np.array_equal(tier._corpus, corpus),
+          f"{name} tier: the compacted corpus is not the corpus plus the "
+          "chunks in arrival order")
+    ref = E.repro_torch.dbscan(corpus, eps, min_pts)
+    lab, core = tier_global(E, tier)
+    check(np.array_equal(lab, ref.labels.cpu().numpy()) and
+          np.array_equal(core, ref.core.cpu().numpy()),
+          f"{name} tier: compacted labels/core != dbscan on the corpus plus "
+          f"{folded} ingested points")
+    one = E.serve.assign(E.serve.build_snapshot(corpus, eps, min_pts), q_np)
+    check(same_answer(after, one), f"{name} tier: assign after compaction "
+          "differs from the single-session assign on the same corpus")
+    alive = [j for j in range(tier.n_shards) if j != TIER_DOWN]
+    r_lab, r_cnt, r_dist = restricted_merge(E, tier, q_np, alive)
+    check(part.partial and part.shards[TIER_DOWN].missing and
+          np.array_equal(part.labels, r_lab) and
+          np.array_equal(part.counts, r_cnt) and
+          np.array_equal(part.dist, r_dist) and
+          (part.counts <= after.counts).all(),
+          f"{name} tier: the partial assign is not the restriction to the "
+          f"live shards {alive}")
+    check(ok and not back.partial and same_answer(back, after),
+          f"{name} tier: after recover_shard({TIER_DOWN}) the answers differ")
+    check(tier.scheduler.hedges > h0 and hedged.shards[0].hedged and
+          same_answer(hedged, plain),
+          f"{name} tier: the hedged leg differs from the unhedged one")
+    log(f"  {name} n={n} tier ({tier.n_shards} shards, a replica of shard "
+        f"0): launches {launches}")
+    log(f"    steps s: split {steps['split']:.3f}, replicate "
+        f"{steps['replicate']:.3f}, warmup {steps['warmup']:.3f}, assign "
+        f"{steps['assign']:.3f} (single session {sv['steps']['assign']:.3f}"
+        f"), ingests {[round(x, 4) for x in ingest_s]} (chunks of "
+        f"{INGEST_CHUNK}; the tier compacted {n + folded} points), assign "
+        f"on the compacted tier {steps['assign_compacted']:.3f}, partial "
+        f"{steps['assign_partial']:.3f}, recover_shard "
+        f"{steps['recover_shard']:.3f}, recovered "
+        f"{steps['assign_recovered']:.3f}, {len(aimed)} queries of shard 0 "
+        f"unhedged {steps['assign_unhedged']:.3f} / hedged "
+        f"{steps['assign_hedged']:.3f}; total {wall:.3f}")
+    log(f"    legs per query {routed} (of {len(q_np)}); assign = the single-"
+        f"session assign; compacted labels and core = dbscan on the corpus "
+        f"plus {folded} ingested points; the partial assign (shard "
+        f"{TIER_DOWN} down, {int((part.counts < after.counts).sum())} "
+        f"queries lost neighbours) = the restriction to shards {alive}; "
+        f"recovered and hedged answers identical")
+    return dict(launches=launches, steps=steps, ingest_s=ingest_s,
+                wall=wall, routed=routed, folded=folded)
+
+
+def run_fig4(E, system, pts, eps, min_pts):
+    if system == "dclust":
+        return E.dclust.run(pts, eps, min_pts)
+    if system == "gdbscan":
+        return E.gdbscan.run(pts, eps, min_pts)
+    if system == "fdbscan":
+        return E.fdbscan.run(pts, eps, min_pts)
+    return E.repro_torch.dbscan(pts, eps, min_pts, engine=system)
+
+
+def phase_fig4(E):
+    """The paper's fig. 4 systems on the card at their full size: each
+    system's kernels launched and no other, core equal across systems,
+    labels equivalent to grid's (border ties may differ), DClust's label
+    propagation taking at least grid's hooking rounds; host seconds a
+    run."""
+    t = E.torch
+    name, n, min_pts, epss = FIG4
+    pts = E.repro_torch.synth.load(name, n, seed=0)
+    total = {k: 0 for k in E.launches()}
+    for eps in epss:
+        res, secs = {}, {}
+        for system, kernels in FIG4_SYSTEMS.items():
+            E.bvh._SPEC_CACHE.clear()
+            t.cuda.synchronize()
+            E.reset_launches()
+            t0 = time.perf_counter()
+            res[system] = run_fig4(E, system, pts, eps, min_pts)
+            t.cuda.synchronize()
+            secs[system] = time.perf_counter() - t0
+            launches = E.launches()
+            check(all(launches[k] > 0 for k in kernels) and
+                  all(v == 0 for k, v in launches.items() if k not in kernels),
+                  f"fig4 eps={eps} {system}: launches {launches}, expected "
+                  f"exactly {kernels}")
+            for k, v in launches.items():
+                total[k] += v
+        base = res["grid"]
+        core = base.core.cpu().numpy()
+        for system, r in res.items():
+            check(t.equal(r.core.cpu(), base.core.cpu()),
+                  f"fig4 eps={eps} {system}: core != grid's")
+            check(E.labels.equivalent(r.labels.cpu().numpy(),
+                                      base.labels.cpu().numpy(), core,
+                                      points=pts, eps=eps),
+                  f"fig4 eps={eps} {system}: labels not equivalent to grid's")
+        check(res["dclust"].n_rounds >= base.n_rounds,
+              f"fig4 eps={eps}: dclust {res['dclust'].n_rounds} rounds < "
+              f"grid's {base.n_rounds}")
+        log(f"  {name} n={n} eps={eps} min_pts={min_pts}: seconds "
+            + ", ".join(f"{k} {v:.4f}" for k, v in secs.items())
+            + f"; rounds dclust {res['dclust'].n_rounds}, gdbscan "
+            f"{res['gdbscan'].n_rounds}, grid {base.n_rounds}; clusters "
+            f"{n_clusters(base.labels)}, core {int(core.sum())}; core equal,"
+            f" labels equivalent")
+    return dict(launches=total)
 
 
 class FrontierRecorder(CallRecorder):
@@ -1986,6 +2239,8 @@ def phase_full(E):
             f" brute-force counts: ok")
         parity_full(E, name, runs[name])
         runs[name]["serve"] = serve_full(E, name, n, eps, min_pts, pts_np)
+        runs[name]["tier"] = tier_full(E, name, n, eps, min_pts, pts_np,
+                                       runs[name]["serve"])
     return runs
 
 
@@ -2886,6 +3141,7 @@ def main() -> int:
     timed("LBVH build parity", phase_lbvh, E)
     timed("whole path, reduced size", phase_reduced, E)
     runs = timed("whole path, full size", phase_full, E)
+    runs[FIG4[0]]["fig4"] = timed("fig. 4 systems", phase_fig4, E)
     per = timed("kernel times", phase_times, E, runs)
 
     log("phases s: " + ", ".join(f"{k} {v:.1f}" for k, v in phases.items())

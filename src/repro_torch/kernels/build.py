@@ -7,9 +7,12 @@ under a name keyed by the source, every ``csrc`` header it includes (at any
 depth) and the flags, so an edited source or header is rebuilt and never
 stale. :func:`launch` is the one way the kernel wrappers call a library:
 it binds the C signature, passes the device, tensor pointers and PyTorch's
-current stream, and raises on a non-zero CUDA error code. Nothing here runs
-at import time: this module imports on a machine with no ``nvcc`` and no
-card.
+current stream, and raises on a non-zero CUDA error code; :func:`count` is
+the one way they count a launch. Both are safe from several host threads
+(the sharded tier's hedged legs launch from two at once): a library is
+built and loaded once under a lock, and the counts are added under
+another. Nothing here runs at import time: this module imports on a
+machine with no ``nvcc`` and no card.
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import NamedTuple
 
@@ -37,6 +41,12 @@ NVCC_FLAGS = (
 _INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 # ctypes types of the letters of a launch signature
 _CTYPES = {"i": ctypes.c_int, "f": ctypes.c_float, "p": ctypes.c_void_p}
+
+# the loaded libraries; the first thread to need one builds and loads it
+# while the others wait
+_LIBRARIES: dict = {}
+_BUILD_LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
 
 
 class Built(NamedTuple):
@@ -97,9 +107,10 @@ def build(names) -> dict[str, Built]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in todo:
-        # a per-process temporary name, renamed into place when complete,
-        # so concurrent builders never load half a file
-        tmp = out[name].path.with_suffix(f".{os.getpid()}.tmp")
+        # a per-process, per-thread temporary name, renamed into place when
+        # complete, so concurrent builds never load half a file
+        tmp = out[name].path.with_suffix(
+            f".{os.getpid()}.{threading.get_ident()}.tmp")
         cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
         procs[name] = (tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
@@ -122,16 +133,19 @@ def load(name: str) -> ctypes.CDLL:
     return ctypes.CDLL(str(build([name])[name].path))
 
 
-@functools.cache
 def _library(name: str) -> ctypes.CDLL:
-    lib = load(name)
-    err = getattr(lib, f"{name}_error_string")
-    err.argtypes = [ctypes.c_int]
-    err.restype = ctypes.c_char_p
+    with _BUILD_LOCK:
+        lib = _LIBRARIES.get(name)
+        if lib is None:
+            lib = load(name)
+            err = getattr(lib, f"{name}_error_string")
+            err.argtypes = [ctypes.c_int]
+            err.restype = ctypes.c_char_p
+            _LIBRARIES[name] = lib
     return lib
 
 
-@functools.cache
+@functools.lru_cache(maxsize=None)
 def _function(lib: str, fn: str, sig: str):
     f = getattr(_library(lib), fn)
     f.argtypes = [_CTYPES[c] for c in sig]
@@ -159,3 +173,10 @@ def launch(lib: str, fn: str, sig: str, kernel: str, device: torch.device,
         msg = getattr(_library(lib), f"{lib}_error_string")(err).decode()
         raise RuntimeError(f"{kernel} launch failed: CUDA error {err} "
                            f"({msg})")
+
+
+def count(launches: dict, kernel: str) -> None:
+    """Add one to ``launches[kernel]``, a wrapper's launch count, under a
+    lock (a bare ``+= 1`` from two threads can lose one)."""
+    with _COUNT_LOCK:
+        launches[kernel] += 1

@@ -152,7 +152,7 @@ def bvh_batch_sweep(queries, dlo, dhi, pt, croot, nmin, leaf, bound, eps2,
                  croot, nmin, leaf, bound, _eps2_f32(eps2), e, b, d,
                  int(dlo.dtype == torch.bfloat16), int(bf16_prune),
                  int(prune_payload), hit, minroot, push)
-    LAUNCHES["bvh_batch_sweep"] += 1
+    build.count(LAUNCHES, "bvh_batch_sweep")
     return hit, minroot, push
 
 
@@ -343,4 +343,4 @@ def bvh_level(inputs: LevelInputs, state: LevelState, level: int, eps2, *,
         int(prune_payload), int(stop_on_overflow), state.counts,
         state.minroot, state.fb[dst], state.fn[dst], state.overflow,
         state.hist, state.status, state.tickets)
-    LAUNCHES["bvh_level"] += 1
+    build.count(LAUNCHES, "bvh_level")

@@ -101,5 +101,5 @@ def cross_sweep(queries, cands_planar, croot, starts_blk, nblk, eps2, *,
                  starts_blk, nblk, _eps2_f32(eps2), starts_blk.shape[0],
                  block_q, cands_planar.shape[1], max_blocks, block_k, run,
                  counts, minroot, mind2, boxes, items, counters)
-    LAUNCHES["cross_sweep"] += 1
+    build.count(LAUNCHES, "cross_sweep")
     return counts, minroot, mind2

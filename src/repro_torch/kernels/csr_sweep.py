@@ -261,7 +261,7 @@ def csr_sweep(queries, cands_planar, croot, starts_blk, nblk, eps2, *,
                  starts_blk, nblk, _eps2_f32(eps2), starts_blk.shape[0],
                  block_q, cands_planar.shape[1], max_blocks, block_k, run,
                  counts, minroot, boxes, items, counters)
-    LAUNCHES["csr_sweep"] += 1
+    build.count(LAUNCHES, "csr_sweep")
     return counts, minroot
 
 
@@ -288,5 +288,5 @@ def csr_sweep_counts(queries, cands_planar, starts_blk, nblk, eps2, *,
                  starts_blk, nblk, _eps2_f32(eps2), starts_blk.shape[0],
                  block_q, cands_planar.shape[1], max_blocks, block_k, run,
                  counts, boxes, items, counters)
-    LAUNCHES["csr_sweep_counts"] += 1
+    build.count(LAUNCHES, "csr_sweep_counts")
     return counts

@@ -134,5 +134,5 @@ def frontier_sweep(queries, cands_planar, croot, starts_blk, nblk, active,
                  croot, starts_blk, nblk, active, n_active, _eps2_f32(eps2),
                  T, block_q, cands_planar.shape[1], max_blocks, block_k, run,
                  minroot, boxes, items, counters)
-    LAUNCHES["frontier_sweep"] += 1
+    build.count(LAUNCHES, "frontier_sweep")
     return minroot

@@ -94,7 +94,7 @@ def gathered_sweep(queries, cands_planar, croot, eps2):
     build.launch("gathered_sweep", "gathered_sweep_launch", "pppfiipp",
                  "gathered_sweep", queries.device, queries, cands_planar,
                  croot, _eps2_f32(eps2), b, k, counts, minroot)
-    LAUNCHES["gathered_sweep"] += 1
+    build.count(LAUNCHES, "gathered_sweep")
     return counts, minroot
 
 
@@ -234,5 +234,5 @@ def hash_sweep(queries, order, buckets, cell_valid, gpoints, gindex,
                  cell_valid, gpoints, gindex, occupancy, core, root,
                  _eps2_f32(eps2), n, buckets.shape[1], gpoints.shape[1],
                  counts, minroot)
-    LAUNCHES["hash_sweep"] += 1
+    build.count(LAUNCHES, "hash_sweep")
     return counts, minroot

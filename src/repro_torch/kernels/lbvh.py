@@ -261,7 +261,7 @@ def lbvh_keys(points, lo, hi, *, dims: int = 3):
     build.launch("lbvh", "lbvh_keys_launch", "piippip", "lbvh_keys",
                  points.device, points, n, points.shape[1], lo, hi,
                  2 if dims == 2 else 3, codes)
-    LAUNCHES["lbvh_keys"] += 1
+    build.count(LAUNCHES, "lbvh_keys")
     return codes
 
 
@@ -279,7 +279,7 @@ def lbvh_nodes(codes) -> Nodes:
                     for m in (n - 1,) * 4 + (2 * n - 1, n - 1)))
     build.launch("lbvh", "lbvh_nodes_launch", "pipppppp", "lbvh_nodes",
                  codes.device, codes, n, *nodes)
-    LAUNCHES["lbvh_nodes"] += 1
+    build.count(LAUNCHES, "lbvh_nodes")
     return nodes
 
 
@@ -315,7 +315,7 @@ def lbvh_refit(points, order, nodes: Nodes) -> Refit:
     build.launch("lbvh", "lbvh_refit_launch", "ppii" + "p" * 8, "lbvh_refit",
                  dev, points, order, n, d, nodes.left, nodes.right,
                  nodes.parent, nodes.arrivals, *out)
-    LAUNCHES["lbvh_refit"] += 1
+    build.count(LAUNCHES, "lbvh_refit")
     return out
 
 
@@ -336,5 +336,5 @@ def lbvh_depth(left, right):
     depth = torch.empty(1, dtype=torch.int32, device=left.device)
     build.launch("lbvh", "lbvh_depth_launch", "ppipp", "lbvh_depth",
                  left.device, left, right, n, parent, depth)
-    LAUNCHES["lbvh_depth"] += 1
+    build.count(LAUNCHES, "lbvh_depth")
     return depth

@@ -51,5 +51,5 @@ def morton_encode(coords, *, dims: int = 3):
         return codes
     build.launch("bvh_sweep", "morton_encode_launch", "piip", "morton_encode",
                  coords.device, coords, n, dims, codes)
-    LAUNCHES["morton_encode"] += 1
+    build.count(LAUNCHES, "morton_encode")
     return codes

@@ -107,5 +107,5 @@ def pairwise_sweep(queries, cands_planar, croot, eps2, *, block_q: int = 256,
                  "pairwise_sweep", queries.device, queries, cands_planar,
                  croot, _eps2_f32(eps2), queries.shape[0], block_q,
                  cands_planar.shape[1], block_c, counts, minroot)
-    LAUNCHES["pairwise_sweep"] += 1
+    build.count(LAUNCHES, "pairwise_sweep")
     return counts, minroot

@@ -1,4 +1,5 @@
-"""Online clustering service of the port: a single serving session.
+"""Online clustering service of the port: serving sessions and the
+sharded tier.
 
 Batch clustering builds an index, labels the corpus, and discards both;
 serving keeps them: freeze a clustered index as a :class:`ClusterSnapshot`
@@ -19,22 +20,40 @@ chunk is applied, compactions stamp watermarks, and
 :meth:`ServeSession.recover` replays the log suffix past the newest
 intact snapshot.
 
+The sharded tier (``shard.py``, ``router.py``) lifts all of it from one
+snapshot to many: :func:`split_snapshot` partitions the Morton-sorted
+corpus into shards with shard-local label tables, and
+:class:`ShardedTier` scatter-gathers ``assign``/``ingest`` across them —
+merged answers and tier compactions stay bit-identical to the
+single-snapshot path, with per-shard WALs and checkpoint namespaces.
+Failure domains (``health.py``) finish the envelope at tier scope: a
+per-target :class:`HealthRegistry` (passive leg signals and active
+deadline-bounded probes, healthy → suspect → down → recovering), replica
+failover and hedged legs, jittered :class:`Backoff` on retryable legs,
+partial gathers with per-shard :class:`LegStatus`, and per-shard
+quarantine and re-materialization from checkpoint namespaces.
+
 Entry points run on ``cuda`` unless given ``device="cpu"``
-(``build_snapshot``, ``load_snapshot``, ``ServeSession.recover``); a
-session and ``assign`` run on their snapshot's device. Snapshots and WALs
-are interchangeable with the JAX reference's (``repro.serve``). The
-reference's sharded tier (``ShardedTier``, ``split_snapshot``,
-``HealthRegistry``) is not ported yet; ``faults.SITES`` already holds its
-fault sites.
+(``build_snapshot``, ``load_snapshot``, ``ServeSession.recover``,
+``ShardedTier.build``); a session, a tier built from a snapshot and
+``assign`` run on their snapshot's device, and a tier places its shards on
+every visible card (its snapshot's device when that is the CPU).
+Snapshots, WALs and shard checkpoint namespaces are interchangeable with
+the JAX reference's (``repro.serve``).
 """
 from .assign import AssignResult, assign  # noqa: F401
+from .health import (DOWN, HEALTHY, RECOVERING, SUSPECT,  # noqa: F401
+                     HealthRegistry, TargetHealth)
 from .ingest import (IngestResult, RecoveryReport,  # noqa: F401
                      ServeSession)
 from .resilience import (AdmissionError, AdmissionQueue,  # noqa: F401
                          Backoff, CapacityError, CircuitBreaker,
                          CompactionError, ServeError, SnapshotFormatError,
                          ValidationError, validate_points)
+from .router import LegStatus, ShardedTier  # noqa: F401
 from .scheduler import BucketScheduler  # noqa: F401
+from .shard import (ShardMap, ShardPart, split_snapshot,  # noqa: F401
+                    target_tag)
 from .snapshot import (ClusterSnapshot, build_snapshot,  # noqa: F401
                        load_snapshot, published_wal_offsets, save_snapshot)
 from .wal import WalRecord, WriteAheadLog  # noqa: F401
@@ -47,4 +66,7 @@ __all__ = [
     "ValidationError", "AdmissionError", "CapacityError", "CompactionError",
     "SnapshotFormatError", "CircuitBreaker", "AdmissionQueue", "Backoff",
     "validate_points", "WalRecord", "WriteAheadLog", "faults",
+    "ShardedTier", "ShardMap", "ShardPart", "split_snapshot",
+    "HealthRegistry", "TargetHealth", "HEALTHY", "SUSPECT", "DOWN",
+    "RECOVERING", "LegStatus", "target_tag",
 ]

@@ -50,6 +50,17 @@ class AssignResult(NamedTuple):
     degraded: bool = False  # True when the serving session is running on
     #                      a circuit-broken (failing/stalled) compaction —
     #                      staleness is no longer bounded by the policy
+    partial: bool = False   # sharded tier only: at least one routed shard
+    #                      contributed nothing (quarantined / leg
+    #                      exhausted). Its neighbors are MISSING, never
+    #                      invented: the min/sum merge makes counts a
+    #                      lower bound and labels/dist upper bounds of
+    #                      the full answer
+    shards: dict | None = None  # sharded tier only: shard_id →
+    #                      router.LegStatus (serving replica, per-shard
+    #                      staleness/degraded, retries/failovers/hedged,
+    #                      missing flag) for every shard the query batch
+    #                      routed to
 
 
 def assign(snapshot: ClusterSnapshot, queries, *,

@@ -101,6 +101,12 @@ class ClusterSnapshot:
         value a previous overflow-regrow stuck for this plan."""
         return _SLAB_CACHE.get(self.spec, self.spec.slab)
 
+    def to(self, device) -> "ClusterSnapshot":
+        """The same snapshot with every tensor on ``device`` (the sharded
+        tier's placement of a shard or replica on its card)."""
+        return dataclasses.replace(self, **{
+            f: getattr(self, f).to(device) for f, _ in _FIELDS})
+
     def note_slab(self, slab: int) -> None:
         """Stick a regrown slab capacity for this snapshot's plan."""
         _SLAB_CACHE[self.spec] = slab

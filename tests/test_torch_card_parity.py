@@ -17,7 +17,10 @@ on the same tensors and against the CPU build, every field bitwise
 (``cull_layouts.lbvh_cases``: the edge sizes, duplicates, sentinels and
 signed zeros). And ``csr_sweep``, ``csr_sweep_counts`` (the culled
 layouts), ``pairwise_sweep``, ``gathered_sweep``, ``morton_encode`` and
-``bvh_batch_sweep`` against their plain versions.
+``bvh_batch_sweep`` against their plain versions. The sharded tier's
+``assign`` on the card (a plain and a hedged leg) against the
+single-session card ``assign``, and two host threads that first reach a
+kernel at the same moment: one build, the same bits.
 
 Every test here is marked ``cuda`` and skips, with its reason, where torch
 sees no CUDA device. It imports neither JAX nor the JAX package, so it
@@ -26,6 +29,8 @@ runs on a machine with a card and no JAX:
     PYTHONPATH=src python -m pytest --noconftest -m cuda \
         tests/test_torch_card_parity.py
 """
+import threading
+
 import numpy as np
 import pytest
 import torch
@@ -33,10 +38,11 @@ import torch
 from cull_layouts import (EPS, EQ_BELOW, culled_layout, lattice_cloud,
                           lattice_counts, lbvh_cases, payload,
                           with_padding_tiles)
-from repro_torch import make_engine
+from repro_torch import make_engine, serve
 from repro_torch.core import bvh as tbvh
 from repro_torch.core import grid as tgrid
 from repro_torch.data import synth
+from repro_torch.kernels import build as tbuild
 from repro_torch.kernels import bvh_sweep as tsweep
 from repro_torch.kernels import cross_sweep as tcross
 from repro_torch.kernels import csr_sweep as tcsr
@@ -369,3 +375,79 @@ def test_bvh_batch_sweep_is_its_plain_version(card, e, dims, bf16, payload):
     p = tsweep.bvh_batch_sweep_plain(*args, 0.09, **kw)
     for x, y in zip(k, p):
         _same(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [2, 4])
+def test_tier_assign_on_the_card_is_the_single_session_assign(card, k):
+    pts = synth.load("skewed2d", 20_000, seed=4)
+    eps = 0.02
+    snap = serve.build_snapshot(pts, eps, 8, device=card)
+    tier = serve.ShardedTier.from_snapshot(snap, n_shards=k)
+    try:
+        assert all(s.snapshot.device.type == "cuda" for s in tier.sessions)
+        rng = np.random.default_rng(k)
+        q = pts[rng.integers(0, len(pts), 3_000)] + (
+            rng.normal(0, eps / 2, (3_000, 3)) * [1, 1, 0]).astype(np.float32)
+        full = serve.assign(snap, q)
+        tier.replicate(0, copies=1)
+        tier.health.record_failure((0, 0))      # hedge shard 0's leg
+        for r in (tier.assign(q), tier.assign(q)):
+            for f in ("labels", "counts", "dist"):
+                np.testing.assert_array_equal(getattr(r, f),
+                                              getattr(full, f), err_msg=f)
+        assert tier.scheduler.hedges >= 1
+        cpu = serve.ShardedTier.build(pts, eps, 8, n_shards=k, device="cpu")
+        r = cpu.assign(q)
+        for f in ("labels", "counts", "dist"):
+            np.testing.assert_array_equal(getattr(r, f), getattr(full, f),
+                                          err_msg=f)
+        cpu.close()
+    finally:
+        tier.close()
+
+
+@pytest.mark.cuda
+def test_two_threads_first_reaching_a_kernel_build_it_once(card, monkeypatch,
+                                                            tmp_path):
+    """A fresh build directory and no loaded library: two threads call
+    ``cross_sweep`` at the same moment; nvcc runs once, both launches count,
+    and both get the bits of the plain version."""
+    args, kinds = culled_layout(2, 64, 512, seed=2)
+    q, cp, croot, st, nb = (torch.as_tensor(x, device=card) for x in args)
+    croot = croot.reshape(1, -1)
+    kw = dict(max_blocks=len(kinds), block_q=64, block_k=512)
+    plain = tcross.cross_sweep_plain(q, cp, croot, st, nb, EPS * EPS,
+                                     max_blocks=len(kinds), block_k=512)
+    monkeypatch.setattr(tbuild, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(tbuild, "_LIBRARIES", {})
+    tbuild._function.cache_clear()
+    runs = []
+    real_popen = tbuild.subprocess.Popen
+
+    def popen(cmd, **kw2):
+        runs.append(cmd[-1])
+        return real_popen(cmd, **kw2)
+
+    monkeypatch.setattr(tbuild.subprocess, "Popen", popen)
+    before = tcross.LAUNCHES["cross_sweep"]
+    gate = threading.Barrier(2)
+    outs = [None, None]
+
+    def first_use(i):
+        gate.wait()
+        outs[i] = tcross.cross_sweep(q, cp, croot, st, nb, EPS * EPS, **kw)
+        torch.cuda.synchronize()
+
+    threads = [threading.Thread(target=first_use, args=(i,))
+               for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    tbuild._function.cache_clear()
+    assert [r.endswith("csr_sweep.cu") for r in runs] == [True]
+    assert tcross.LAUNCHES["cross_sweep"] - before == 2
+    for out in outs:
+        for k, p in zip(out, plain):
+            _same(k, p)

@@ -13,12 +13,14 @@ from repro_torch.core import grid as tgrid
 
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 MODULES = ["repro_torch", "repro_torch.baselines",
-           "repro_torch.baselines.brute", "repro_torch.baselines.fdbscan",
+           "repro_torch.baselines.brute", "repro_torch.baselines.dclust",
+           "repro_torch.baselines.fdbscan", "repro_torch.baselines.gdbscan",
            "repro_torch.core", "repro_torch.core.bvh",
            "repro_torch.core.dbscan", "repro_torch.core.engines",
            "repro_torch.core.grid", "repro_torch.core.labels",
            "repro_torch.core.neighbors", "repro_torch.core.union_find",
-           "repro_torch.data", "repro_torch.data.synth",
+           "repro_torch.data", "repro_torch.data.pipeline",
+           "repro_torch.data.synth",
            "repro_torch.distributed", "repro_torch.distributed.checkpoint",
            "repro_torch.kernels", "repro_torch.kernels.build",
            "repro_torch.kernels.bvh_sweep",
@@ -28,10 +30,13 @@ MODULES = ["repro_torch", "repro_torch.baselines",
            "repro_torch.kernels.gathered_sweep",
            "repro_torch.kernels.morton", "repro_torch.kernels.ops",
            "repro_torch.kernels.pairwise_sweep", "repro_torch.kernels.ref",
+           "repro_torch.launch", "repro_torch.launch.cluster",
            "repro_torch.serve", "repro_torch.serve.assign",
-           "repro_torch.serve.faults", "repro_torch.serve.ingest",
-           "repro_torch.serve.resilience", "repro_torch.serve.scheduler",
-           "repro_torch.serve.snapshot", "repro_torch.serve.wal"]
+           "repro_torch.serve.faults", "repro_torch.serve.health",
+           "repro_torch.serve.ingest", "repro_torch.serve.resilience",
+           "repro_torch.serve.router", "repro_torch.serve.scheduler",
+           "repro_torch.serve.shard", "repro_torch.serve.snapshot",
+           "repro_torch.serve.wal"]
 
 
 def test_import_loads_no_jax_and_no_repro():
@@ -60,6 +65,22 @@ def test_import_loads_no_jax_and_no_repro():
         "s.compact()\n"
         "s.wal.close()\n"
         "serve.ServeSession.recover(d + '/ck', d + '/wal', device='cpu')\n"
+        "t = serve.ShardedTier.build(pts, 0.1, 2, n_shards=2, device='cpu',"
+        " ckpt_root=d + '/tck', wal_root=d + '/twal')\n"
+        "t.replicate(0)\n"
+        "t.warmup(256)\n"
+        "t.health.record_failure((0, 0))\n"
+        "t.assign([[0.0, 0.01, 0.0]])\n"
+        "t.ingest([[0.02, 0.0, 0.0]])\n"
+        "t.compact()\n"
+        "t.health.force_down((0, 0))\n"
+        "assert t.recover_shard(0)\n"
+        "t.close()\n"
+        "from repro_torch.baselines import dclust, gdbscan\n"
+        "gdbscan.run(pts, 0.1, 2, device='cpu')\n"
+        "dclust.run(pts, 0.1, 2, device='cpu')\n"
+        "from repro_torch.data.pipeline import point_stream\n"
+        "list(point_stream('taxi2d', 10, 4))\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or"
         " m.startswith(('jax.', 'jaxlib', 'repro.')) or m == 'repro')\n"
         "print('BAD', bad)\n")
