@@ -13,8 +13,10 @@ drivers, on the stack BVH engine
 (``fdbscan``); single-session serving (``serve``: ``build_snapshot``,
 ``assign``, ``ServeSession.ingest`` with compaction, snapshot save and
 load); the sharded serving tier (``tier``: ``ShardedTier``, its assign,
-ingest, compaction, partial gathers, recovery and hedged legs); and the
-paper's fig. 4 systems (DClust, grid, FDBSCAN, G-DBSCAN, brute). Phases:
+ingest, compaction, partial gathers, recovery and hedged legs); the
+paper's fig. 4 systems (DClust, grid, FDBSCAN, G-DBSCAN, brute); and the
+distributed driver on thread ranks of the card and through the CLI's
+``--distributed``. Phases:
 
   1. environment: the card's name and power limit (nvidia-smi);
   2. build: every kernel source in src/repro_torch/csrc, one nvcc each,
@@ -111,6 +113,25 @@ paper's fig. 4 systems (DClust, grid, FDBSCAN, G-DBSCAN, brute). Phases:
      FDBSCAN, G-DBSCAN and brute, each launching exactly its kernels
      (G-DBSCAN none), core equal across systems, labels equivalent to
      grid's, DClust's rounds at least grid's, each system's seconds;
+  5c. the distributed driver (``dbscan_distributed``) on 4 thread ranks of
+     the card at full size (roadnet2d 435,000, iono3d 1,000,000) with the
+     local engines grid, csr and bvh: launch counts set to 0 before and
+     read after each run (exactly the engine's kernels), labels, core and
+     n_rounds identical across the engines, core equal to grid/device's,
+     the noise set and the core partition equal after canonical
+     relabelling, every core label its cluster's least core id and every
+     border label the least label of its core neighbours (one csr_sweep
+     payload on the single-device engine); each engine's kernels held to
+     their plain versions at the run's own shapes (hash_sweep on 65,536
+     of its queries, csr_sweep on 64 tiles, build_bvh field by field and
+     every bvh_level of a sweep); each run's host seconds per step,
+     attempts and regrows, bytes put into each collective, peak device
+     memory and launches. Then at iono3d 20,000, ε = 4.0, minPts 16 (it
+     clusters and hooks; brute runs there only, all pairs over buffers
+     1.25 n wide a rank): every engine on the card against the CPU plain
+     versions (labels, core, n_rounds); neighbor_buckets of ±1e30 and
+     ±3e9 rows, card against CPU; the CLI's ``--distributed`` (a one-rank
+     NCCL process group) against one thread rank;
   6. kernel times at the full-size shapes of each kernel's path (median of
      5 launches, CUDA events), beside the plain version's time and the
      least time the card could take (bound; for the four slab sweeps that
@@ -134,8 +155,8 @@ paper's fig. 4 systems (DClust, grid, FDBSCAN, G-DBSCAN, brute). Phases:
      bvh_batch_sweep at the widest level and its whole level loop beside
      it. Rows 6, 7 and 8 of the kernels line (lbvh_keys, bvh_level,
      hash_sweep) carry those A-side numbers under ``previous``. A
-     kernel's ``launches`` sum every counted path run of phases 5 and 5b
-     (the tier and fig. 4 included).
+     kernel's ``launches`` sum every counted path run of phases 5, 5b and
+     5c (the tier, fig. 4 and the distributed runs included).
 
 Before the last line it prints one ``{"kernels": [...]}`` JSON line; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -144,6 +165,7 @@ prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -263,6 +285,27 @@ PREVIOUS = {
 }
 # edge cases of the LBVH build parity (besides the full-size builds)
 LBVH_EDGE_N = (2, 3, 5, 1_023, 4_097)
+# the distributed driver: thread ranks on the card, the local engines run at
+# full size and the kernels each launches; brute (all pairs over buffers
+# 1.25 n wide a rank) runs at DIST_REDUCED only, where every engine is also
+# held to the CPU plain versions. max_regrows: the reference's default is
+# 3; the smoke passes more and prints each run's regrows (csr at iono3d 1M
+# takes 6: its slab and every buffer double each time), so that a run that
+# needs more doublings is reported, not failed (no default of DistConfig
+# changes)
+DIST_RANKS = 4
+DIST_ENGINES = ("grid", "csr", "bvh")
+# brute's run and the CPU comparison: the reduced phase's hooking case
+# (roadnet2d 20,000 regrows the grid engine to C = 512, and the plain
+# version's padded 27 x C windows then take over ten minutes on the CPU)
+DIST_REDUCED = ("iono3d", 20_000, 4.0, 16)
+DIST_CPU_THREADS = 2   # torch threads of each CPU rank thread
+DIST_REGROWS = 6
+DIST_SUBSET = 65_536   # queries of a full-size hash_sweep held to plain
+DIST_KERNELS = {"grid": ("hash_sweep",), "csr": ("csr_sweep",),
+                "bvh": BVH_KERNELS, "brute": ("pairwise_sweep",)}
+DIST_STEPS = ("cuts", "all_to_all", "halo", "local_build", "stage1",
+              "components", "label_rounds", "border", "return")
 
 
 class SmokeFailure(Exception):
@@ -306,12 +349,15 @@ class Env:
         from repro_torch import serve
         from repro_torch.baselines import dclust, fdbscan, gdbscan
         from repro_torch.core import bvh, grid, labels, neighbors
+        from repro_torch.distributed import comm, dbscan_dist
         from repro_torch.kernels import (build, bvh_sweep, cross_sweep,
                                          csr_sweep, frontier_sweep,
                                          gathered_sweep, lbvh, morton, ops,
                                          pairwise_sweep, ref)
+        from repro_torch.launch import cluster
         from repro_torch.serve import snapshot
         self.torch, self.repro_torch = torch, repro_torch
+        self.dd, self.comm, self.cluster = dbscan_dist, comm, cluster
         self.build, self.ops, self.ref = build, ops, ref
         self.csr, self.frontier = csr_sweep, frontier_sweep
         self.pairwise, self.gathered = pairwise_sweep, gathered_sweep
@@ -2245,6 +2291,291 @@ def phase_full(E):
 
 
 # --------------------------------------------------------------------------
+# phase 5c: the distributed driver (D ranks as threads on the card)
+
+
+class LastCall(CallRecorder):
+    """Keeps the arguments of the last call of ``module.attr`` only."""
+
+    def __enter__(self):
+        def record(*args, **kw):
+            self.calls[:] = [(args, kw)]
+            self.seen += 1
+            return self.real(*args, **kw)
+        setattr(self.module, self.attr, record)
+        return self
+
+
+def dist_run(E, pts, eps, min_pts, engine, device, max_regrows=DIST_REGROWS):
+    """dbscan_distributed on DIST_RANKS thread ranks of ``device``."""
+    return E.dd.dbscan_distributed(
+        pts, eps, min_pts, E.comm.ThreadGroup(DIST_RANKS, device),
+        cfg=E.dd.DistConfig(local_engine=engine), max_regrows=max_regrows)
+
+
+def canon(labels):
+    """Labels renumbered by first appearance (-1 kept)."""
+    lab = labels.cpu().numpy()
+    uniq, first, inv = np.unique(lab, return_index=True, return_inverse=True)
+    rank = np.argsort(np.argsort(first))
+    out = rank[inv]
+    out[lab == -1] = -1
+    return out
+
+
+def check_dist_answer(E, res, single, eng, what):
+    """``res`` (distributed) against the single-device ``dbscan`` result
+    ``single`` on the same points: core equal, noise set and core
+    partition equal after canonical relabelling, every label of a core
+    point the least id of a core point of its cluster, and every border
+    label the least distributed label of its core ε-neighbours (one
+    csr_sweep payload on the single-device engine ``eng``)."""
+    t = E.torch
+    core = single.core
+    check(t.equal(res.core, core), f"{what}: core != single-device dbscan's")
+    a, b = canon(res.labels), canon(single.labels)
+    check(((a == -1) == (b == -1)).all(), f"{what}: noise set differs")
+    c = core.cpu().numpy()
+    check((a[c] == b[c]).all(), f"{what}: core partition differs")
+    lab = res.labels
+    first = t.full_like(lab, INT_MAX).scatter_reduce(
+        0, lab.clamp(min=0).long(), t.arange(len(lab), dtype=t.int32,
+                                             device=lab.device)
+        .masked_fill(~core, INT_MAX), "amin", include_self=True)
+    check(t.equal(lab[core], first[lab[core].long()]),
+          f"{what}: a core label is not its cluster's least core id")
+    _, m = eng.sweep(eng.state, core, lab)
+    border = (~core) & (lab >= 0)
+    check(t.equal(lab[border], m[border]),
+          f"{what}: a border label is not the least label of its core "
+          "neighbours")
+    check(bool((m[lab == -1] == INT_MAX).all()),
+          f"{what}: a noise point has a core neighbour")
+    return int(border.sum())
+
+
+def dist_parity(E, rec, engine, what):
+    """The kernels of a local engine, held to their plain versions at the
+    shapes the distributed run gave them (its last call)."""
+    t = E.torch
+    if engine == "grid":
+        (q, _order, bk, cv, gp, gi, occ, core, root, eps2), kw = \
+            rec["grid"].calls[0]
+        idx = t.as_tensor(np.sort(np.random.default_rng(7).choice(
+            q.shape[0], min(DIST_SUBSET, q.shape[0]), replace=False)),
+            device=q.device)
+        args = (q[idx].contiguous(), t.arange(len(idx), dtype=t.int32,
+                                               device=q.device),
+                bk[idx].contiguous(), cv[idx].contiguous(), gp, gi, occ,
+                core, root)
+        k = E.gathered.hash_sweep(*args, eps2)
+        p = E.gathered.hash_sweep_plain(*args, eps2)
+        for i, w in enumerate(("counts", "minroot")):
+            same(E, f"hash_sweep {w} ({what})", k[i], p[i])
+        return f"hash_sweep on {len(idx)} of {q.shape[0]} queries"
+    if engine == "csr":
+        args, kw = rec["csr"].calls[0]
+        sub, max_nblk, tiles = tile_subset(E, args, kw, seed=7)
+        compare_csr(E, sub, args[5], **kw)
+        return (f"csr_sweep on {len(tiles)} of {args[3].shape[0]} tiles "
+                f"(widest nblk {max_nblk})")
+    if engine == "bvh":
+        (pts,), kw = rec["build"].calls[0]
+        check_build(E, pts, 3, kw["lo"], kw["hi"], f"{what} build_bvh")
+        (tree, queries, croot), skw = rec["sweep"].calls[0]
+        skw = {k: v for k, v in skw.items() if k != "stop_on_overflow"}
+        with LevelChecker(E) as chk:
+            E.bvh.wavefront_sweep_fused(tree, queries, croot, **skw)
+        return (f"build_bvh of {pts.shape[0]} candidates; bvh_level on "
+                f"{len(chk.levels)} levels")
+    args, kw = rec["brute"].calls[0]
+    compare_pairwise(E, *args[:3], args[3])
+    return f"pairwise_sweep {tuple(args[0].shape)} x {tuple(args[1].shape)}"
+
+
+def dist_recorders(E):
+    return {"grid": LastCall(E.gathered, "hash_sweep"),
+            "csr": LastCall(E.csr, "csr_sweep"),
+            "build": LastCall(E.bvh, "build_bvh"),
+            "sweep": LastCall(E.bvh, "wavefront_sweep"),
+            "brute": LastCall(E.pairwise, "pairwise_sweep")}
+
+
+def log_dist(E, what, res, wall, launches):
+    tm = res.timings
+    steps = ", ".join(f"{k} {tm[k]:.4f}" for k in DIST_STEPS)
+    log(f"  {what}: {wall:.3f} s, regrows {tm['regrows']}, n_rounds "
+        f"{res.n_rounds}, local rounds {tm['local_rounds']} (rank 0), "
+        f"clusters {n_clusters(res.labels)}, core {int(res.core.sum())}, "
+        f"noise {int((res.labels == -1).sum())}")
+    log(f"    steps s (rank 0, each ended by a synchronize): {steps}; "
+        "attempts s " + ", ".join(f"{a:.3f}" for a in tm["attempts_s"]))
+    log(f"    bytes put into each collective (all ranks): "
+        + json.dumps(tm["sent"]) + f"; peak device memory "
+        f"{E.torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log(f"    launches {launches}")
+
+
+def log_dist_profile(E, what, wall, rows):
+    """The device's busy share of a traced distributed run, and its
+    largest device operations."""
+    if not rows:
+        log(f"    {what}, torch.profiler: no device time in the trace (not "
+            "measured)")
+        return
+    busy = sum(r[1] for r in rows)
+    ours = sum(ms for key, ms, _ in rows
+               if any(k in key for k in E.launches()))
+    log(f"    {what}, torch.profiler (a run after the counted one): host "
+        f"{wall:.3f} s, device busy {busy:.1f} ms ({busy / 1e3 / wall:.1%}),"
+        f" the port's kernels {ours:.1f} ms; largest (name, ms, launches): "
+        + json.dumps([(k[:60], round(ms, 3), c) for k, ms, c in rows[:8]]))
+
+
+def phase_distributed(E, runs):
+    """The distributed driver on DIST_RANKS thread ranks of the card at full
+    size (grid, csr, bvh) and brute at DIST_REDUCED (all pairs over buffers
+    1.25 n wide a rank), launches counted per run; the local engines'
+    kernels held to their plain versions at the run's shapes; labels, core
+    and rounds identical across engines, the answer against the
+    single-device dbscan; at DIST_REDUCED the card against the CPU plain
+    versions for every engine, and a one-rank NCCL process group (the
+    CLI's path) against one thread rank. Each step's host seconds."""
+    t = E.torch
+    for name, n, eps, min_pts in FULL:
+        t_ds = time.perf_counter()
+        pts = E.repro_torch.synth.load(name, n, seed=0)
+        eng = E.repro_torch.make_engine(pts, eps, engine="grid")
+        single = E.repro_torch.dbscan(pts, eps, min_pts, eng=eng)
+        first = None
+        for engine in DIST_ENGINES:
+            kernels = DIST_KERNELS[engine]
+            rec = dist_recorders(E)
+            t.cuda.synchronize()
+            t.cuda.reset_peak_memory_stats()
+            E.reset_launches()
+            t0 = time.perf_counter()
+            with contextlib.ExitStack() as stack:
+                for r in rec.values():
+                    stack.enter_context(r)
+                res = dist_run(E, pts, eps, min_pts, engine, E.dev)
+                t.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = E.launches()
+            check(all(launches[k] > 0 for k in kernels) and
+                  all(v == 0 for k, v in launches.items() if k not in kernels),
+                  f"{name} dist/{engine}: launches {launches}, expected "
+                  f"exactly {kernels}")
+            log_dist(E, f"{name} n={n} dist/{engine} D={DIST_RANKS}", res,
+                     wall, launches)
+            runs[name][f"dist/{engine}"] = dict(launches=launches, res=res,
+                                                wall=wall)
+            log(f"    held to plain: "
+                + dist_parity(E, rec, engine, f"{name} dist/{engine}"))
+            if first is None:
+                first = res
+                n_border = check_dist_answer(E, res, single, eng,
+                                             f"{name} dist/{engine}")
+                log(f"    core, noise and core partition equal to "
+                    f"grid/device's; {n_border} border labels the least "
+                    "label of their core neighbours")
+                log_dist_profile(E, f"{name} dist/{engine}", *profile_device(
+                    E, lambda: dist_run(E, pts, eps, min_pts, engine,
+                                        E.dev)))
+            else:
+                for f in ("labels", "core"):
+                    check(t.equal(getattr(first, f), getattr(res, f)),
+                          f"{name} dist/{engine}: {f} != dist/"
+                          f"{DIST_ENGINES[0]}'s")
+                check(res.n_rounds == first.n_rounds,
+                      f"{name} dist/{engine}: n_rounds {res.n_rounds} != "
+                      f"{first.n_rounds}")
+        log(f"    {name}: labels, core and n_rounds identical across "
+            f"{list(DIST_ENGINES)} ({time.perf_counter() - t_ds:.1f} s with "
+            "the parity checks)")
+    t0 = time.perf_counter()
+    dist_reduced(E, runs)
+    log(f"  (reduced size, cpu comparison and CLI: "
+        f"{time.perf_counter() - t0:.1f} s)")
+
+
+def dist_reduced(E, runs):
+    """At DIST_REDUCED: every local engine on the card (brute's launches
+    counted: its only run) against the CPU plain versions, the
+    neighbor_buckets rows of +BIG queries on the card against the CPU's,
+    and a one-rank NCCL process group through the CLI against one thread
+    rank."""
+    t = E.torch
+    name, n, eps, min_pts = DIST_REDUCED
+    what = f"{name} n={n} eps={eps}"
+    pts = E.repro_torch.synth.load(name, n, seed=0)
+    for engine in DIST_ENGINES + ("brute",):
+        rec = dist_recorders(E)
+        t.cuda.synchronize()
+        E.reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.ExitStack() as stack:
+            for r in rec.values():
+                stack.enter_context(r)
+            res = dist_run(E, pts, eps, min_pts, engine, E.dev)
+            t.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = E.launches()
+        kernels = DIST_KERNELS[engine]
+        check(all(launches[k] > 0 for k in kernels) and
+              all(v == 0 for k, v in launches.items() if k not in kernels),
+              f"{what} dist/{engine}: launches {launches}")
+        if engine == "brute":
+            runs[name][f"dist/brute n={n}"] = dict(launches=launches,
+                                                    res=res, wall=wall)
+            log(f"  brute runs at n = {n:,} only: all pairs over buffers "
+                "1.25 n wide a rank")
+        log_dist(E, f"{what} dist/{engine} D={DIST_RANKS}", res, wall,
+                 launches)
+        log("    held to plain: " + dist_parity(E, rec, engine,
+                                                f"{what} dist/{engine}"))
+        threads = t.get_num_threads()
+        t.set_num_threads(DIST_CPU_THREADS)
+        t0 = time.perf_counter()
+        try:
+            cpu = dist_run(E, pts, eps, min_pts, engine, "cpu")
+        finally:
+            t.set_num_threads(threads)
+        for f in ("labels", "core"):
+            check(t.equal(getattr(res, f).cpu(), getattr(cpu, f)),
+                  f"{what} dist/{engine}: card {f} != cpu's")
+        check(res.n_rounds == cpu.n_rounds,
+              f"{what} dist/{engine}: n_rounds card {res.n_rounds} != cpu "
+              f"{cpu.n_rounds}")
+        log(f"    card == cpu plain versions (labels, core, n_rounds "
+            f"{res.n_rounds}); the cpu run {time.perf_counter() - t0:.1f} s "
+            f"({DIST_RANKS} rank threads x {DIST_CPU_THREADS} torch threads)")
+    far = np.array([[1e30, 0, 0], [-1e30, 1e30, 3e9], [1e30] * 3,
+                    [-3e9, 2.2e9, -1e30], [0.5, -0.25, 0.125]], np.float32)
+    for dims, side, table in ((3, 0.02, 64), (2, 1.0, 1 << 17)):
+        spec = E.grid.GridSpec(side=side, origin=(0.0, 0.0, 0.0),
+                               table_size=table, capacity=32, dims=dims)
+        kb, kv = E.grid.neighbor_buckets(E.tensor(far), spec)
+        pb, pv = E.grid.neighbor_buckets(t.as_tensor(far), spec)
+        check(t.equal(kb.cpu(), pb) and t.equal(kv.cpu(), pv),
+              f"neighbor_buckets of +BIG rows: card != cpu (dims {dims})")
+    log("  neighbor_buckets of +-1e30 / +-3e9 rows: card == cpu")
+    one = E.dd.dbscan_distributed(pts, eps, min_pts, E.comm.ThreadGroup(
+        1, E.dev))
+    t0 = time.perf_counter()
+    cli = E.cluster.main(["--dataset", name, "-n", str(n), "--eps",
+                          str(eps), "--min-pts", str(min_pts),
+                          "--distributed"])
+    wall = time.perf_counter() - t0
+    for f in ("labels", "core"):
+        check(t.equal(getattr(cli, f).cpu(), getattr(one, f).cpu()),
+              f"CLI --distributed (one NCCL rank): {f} != one thread rank's")
+    check(cli.n_rounds == one.n_rounds, "CLI --distributed: n_rounds differ")
+    log(f"  CLI --distributed (a one-rank NCCL process group) == one thread "
+        f"rank: n_rounds {cli.n_rounds}, {wall:.3f} s")
+
+
+# --------------------------------------------------------------------------
 # phase 6: kernel times at the full-size shapes of each kernel's path
 
 
@@ -3141,6 +3472,7 @@ def main() -> int:
     timed("LBVH build parity", phase_lbvh, E)
     timed("whole path, reduced size", phase_reduced, E)
     runs = timed("whole path, full size", phase_full, E)
+    timed("distributed", phase_distributed, E, runs)
     runs[FIG4[0]]["fig4"] = timed("fig. 4 systems", phase_fig4, E)
     per = timed("kernel times", phase_times, E, runs)
 

@@ -29,6 +29,10 @@ the fields of the :class:`Engine` it builds:
 The port registers every engine of the reference: ``grid``, ``grid-hash``
 and ``brute`` (``neighbors.py``), ``bvh`` and ``bvh-stack`` (``bvh.py``).
 Asking for another raises ``ValueError``.
+
+A second table holds the distributed driver's *local* engines (``brute``,
+``csr``, ``grid``, ``bvh``; ``distributed/dbscan_dist.py``), through
+:func:`register_local_engine` and :func:`get_local_engine`.
 """
 from __future__ import annotations
 
@@ -106,6 +110,7 @@ class EngineSpec(NamedTuple):
 
 
 _REGISTRY: dict[str, EngineSpec] = {}
+_LOCAL_REGISTRY: dict[str, Callable] = {}
 
 
 def register_engine(name: str, build_fn: Callable, *, doc: str = "",
@@ -115,11 +120,21 @@ def register_engine(name: str, build_fn: Callable, *, doc: str = "",
                                  capabilities=frozenset(capabilities))
 
 
+def register_local_engine(name: str, build_fn: Callable) -> None:
+    """Register a distributed *local* engine builder with signature
+    ``build(cand_pts, eps, n_cand, p_own, cfg) -> (sweep_all, sweep_own,
+    overflow)`` where ``sweep_*(croot) -> (counts, minroot)`` answer the
+    fused query for all local candidates / the owned prefix respectively,
+    and ``overflow`` raises the driver's regrow-and-restart flag."""
+    _LOCAL_REGISTRY[name] = build_fn
+
+
 def _ensure_builtin() -> None:
-    # neighbors and bvh import this module for Engine, so they register
-    # themselves here lazily rather than being imported at the top.
+    # neighbors, bvh and the distributed driver import this module, so they
+    # register themselves here lazily rather than being imported at the top.
     from . import bvh as _bvh       # noqa: F401  (bvh, bvh-stack)
     from . import neighbors as _nb  # noqa: F401  (brute, grid, grid-hash)
+    from ..distributed import dbscan_dist as _dd  # noqa: F401 (local engines)
 
 
 def get_engine_spec(name: str) -> EngineSpec:
@@ -135,6 +150,21 @@ def get_engine_spec(name: str) -> EngineSpec:
 def available_engines() -> tuple:
     _ensure_builtin()
     return tuple(sorted(_REGISTRY))
+
+
+def get_local_engine(name: str) -> Callable:
+    _ensure_builtin()
+    try:
+        return _LOCAL_REGISTRY[name]
+    except KeyError:
+        raise ValueError(
+            f"unknown local_engine {name!r}; registered local engines: "
+            f"{', '.join(available_local_engines())}") from None
+
+
+def available_local_engines() -> tuple:
+    _ensure_builtin()
+    return tuple(sorted(_LOCAL_REGISTRY))
 
 
 def make_engine(points, eps: float, *, engine: str = "grid",

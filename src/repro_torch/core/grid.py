@@ -36,6 +36,7 @@ from .engines import resolve_device
 
 BIG = 1e30
 INT32_MAX = np.iinfo(np.int32).max
+_F32_BELOW_2_31 = 2.0 ** 31 - 128      # the largest f32 below 2^31
 # Teschner et al.'s spatial-hash primes
 _HASH_K = (73856093, 19349663, 83492791)
 _U32 = 0xFFFFFFFF
@@ -76,13 +77,24 @@ def _hash_cells(cx, cy, cz, table_size: int) -> torch.Tensor:
     return (h & (table_size - 1)).to(torch.int32)
 
 
+def _saturate_int32(x: torch.Tensor) -> torch.Tensor:
+    """f32 → int32 as XLA converts: values beyond the int32 range saturate
+    to its ends (a plain cast sends +huge to INT32_MIN on the CPU). The
+    clamp stops at the largest f32 below 2^31, and everything from 2^31 up
+    maps to INT32_MAX."""
+    c = torch.clamp(x, -2.0 ** 31, _F32_BELOW_2_31).to(torch.int32)
+    return torch.where(x >= 2.0 ** 31, INT32_MAX, c)
+
+
 def _quantize(points: torch.Tensor, spec: GridSpec) -> torch.Tensor:
     """Integer cell coordinates (n, 3); z is 0 for 2D. Both constants are
-    rounded once to f32, as in the reference."""
+    rounded once to f32, as in the reference. A coordinate far outside the
+    domain (a +1e30 padding row) saturates, as the reference's cast
+    does."""
     inv = torch.tensor(1.0 / spec.side, dtype=points.dtype,
                        device=points.device)
     org = torch.tensor(spec.origin, dtype=points.dtype, device=points.device)
-    c = torch.floor((points - org) * inv).to(torch.int32)
+    c = _saturate_int32(torch.floor((points - org) * inv))
     if spec.dims == 2:
         c[:, 2] = 0
     return c
@@ -205,14 +217,24 @@ class CSRGrid(NamedTuple):
     codes: torch.Tensor     # (n,) int32 sorted Morton cell codes
 
 
-def csr_cells(points: torch.Tensor, side: float, origin: tuple, dims: int,
+def csr_cells(points: torch.Tensor, side, origin, dims: int,
               bits: int) -> torch.Tensor:
     """Quantized cell coords, clipped to the real-cell range
     [0, 2^bits - 3]. The two top indices stay free: 2^bits - 2 for clipped
-    window neighbors, 2^bits - 1 reserved for padding sentinels."""
-    # both constants rounded once to the points' f32, as the reference does
-    inv = torch.tensor(1.0 / side, dtype=points.dtype, device=points.device)
-    org = torch.tensor(origin, dtype=points.dtype, device=points.device)
+    window neighbors, 2^bits - 1 reserved for padding sentinels.
+
+    ``side`` and ``origin`` are a Python float and tuple (the single-device
+    plan: 1 / side rounded once from f64 to f32, as the reference does with
+    a Python float), or f32 tensors on the points' device (the distributed
+    engine, whose plan lives on the device: 1 / side is then an f32
+    division, as in the reference, with no host read)."""
+    if isinstance(side, torch.Tensor):
+        inv = 1.0 / side
+        org = origin
+    else:
+        inv = torch.tensor(1.0 / side, dtype=points.dtype,
+                           device=points.device)
+        org = torch.tensor(origin, dtype=points.dtype, device=points.device)
     # clamped before the cast: a coordinate far outside the domain (a
     # serving query, a +BIG padding row) saturates instead of overflowing
     # int32, as the reference's saturating cast does

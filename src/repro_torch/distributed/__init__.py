@@ -1,6 +1,11 @@
-"""Distributed runtime of the port: ``checkpoint`` (atomic, keep-K,
-namespaced checkpoints, which the serving tier publishes its snapshots
-through) and :func:`shard_devices`, the sharded tier's placement."""
+"""Distributed runtime of the port: ``dbscan_dist`` (the distributed
+DBSCAN driver: quantile slabs, an all_to_all, ε-halo permutes, local
+sweeps through the local-engine registry, label rounds, regrow on
+overflow), ``comm`` (its collectives over a group of D ranks: threads on
+one device, or a ``torch.distributed`` process group), ``checkpoint``
+(atomic, keep-K, namespaced checkpoints, which the serving tier publishes
+its snapshots through) and :func:`shard_devices`, the sharded tier's
+placement."""
 from __future__ import annotations
 
 

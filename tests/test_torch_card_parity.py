@@ -20,7 +20,12 @@ layouts), ``pairwise_sweep``, ``gathered_sweep``, ``morton_encode`` and
 ``bvh_batch_sweep`` against their plain versions. The sharded tier's
 ``assign`` on the card (a plain and a hedged leg) against the
 single-session card ``assign``, and two host threads that first reach a
-kernel at the same moment: one build, the same bits.
+kernel at the same moment: one build, the same bits. The distributed
+driver's four local engines on candidate buffers padded as the all_to_all
+leaves them (counts, minroot and overflow equal to the CPU's, and exactly
+each engine's kernels launched), ``neighbor_buckets`` of ±1e30 and ±3e9
+rows equal to the CPU's, and a 4-rank thread group on the card equal to
+one on the CPU.
 
 Every test here is marked ``cuda`` and skips, with its reason, where torch
 sees no CUDA device. It imports neither JAX nor the JAX package, so it
@@ -451,3 +456,95 @@ def test_two_threads_first_reaching_a_kernel_build_it_once(card, monkeypatch,
     for out in outs:
         for k, p in zip(out, plain):
             _same(k, p)
+
+
+def _dist_layout(name, n, D, seed=0):
+    """A distributed local engine's candidates as the all_to_all and the
+    halo exchange leave them: D owned chunks and two halo chunks, each a
+    run of real rows then +1e30 padding rows; (cand_pts, p_own, real)."""
+    pts = synth.load(name, n, seed=seed)
+    cap, cap_halo = 4 * n // (D * D), n // (2 * D)
+    rng = np.random.default_rng(seed)
+    sizes = [cap] * D + [cap_halo] * 2
+    fill = [min(s, n // D + int(rng.integers(0, n // (4 * D))))
+            for s in sizes[:D]] + [cap_halo // 2, 0]
+    pts = np.resize(pts, (sum(fill), 3))
+    out, pos = [], 0
+    for s, f in zip(sizes, fill):
+        chunk = np.full((s, 3), 1e30, np.float32)
+        chunk[:f] = pts[pos:pos + f]
+        pos += f
+        out.append(chunk)
+    cand = np.concatenate(out)
+    return cand, D * cap, cand[:, 0] < 1e29
+
+
+def _dist_local(engine, cand, eps, p_own, croot, device):
+    from repro_torch.distributed import dbscan_dist as tdd
+    build = tdd.engines.get_local_engine(engine)
+    sweep_all, sweep_own, ovf = build(
+        torch.as_tensor(cand, device=device), eps, cand.shape[0], p_own,
+        tdd.DistConfig(local_engine=engine))
+    r = torch.as_tensor(croot, device=device)
+    return [x.cpu() for x in (*sweep_all(r), *sweep_own(r))] + [bool(ovf)]
+
+
+DIST_KERNELS = {"grid": ("hash_sweep",), "csr": ("csr_sweep",),
+                "bvh": ("lbvh_keys", "lbvh_nodes", "lbvh_refit",
+                        "bvh_level"),
+                "brute": ("pairwise_sweep",)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", list(DIST_KERNELS))
+@pytest.mark.parametrize("name,n,eps", [("roadnet2d", 12_000, 0.02),
+                                        ("iono3d", 12_000, 4.0)],
+                         ids=["roadnet2d", "iono3d"])
+def test_distributed_local_engine_on_the_card_is_its_plain_run(
+        card, engine, name, n, eps):
+    cand, p_own, real = _dist_layout(name, n, 4)
+    rng = np.random.default_rng(1)
+    croot = np.where(real & (rng.uniform(size=len(real)) < 0.5),
+                     rng.integers(0, len(real), len(real)),
+                     INT_MAX).astype(np.int32)
+    mods = (tcsr, tpairwise, tgathered, tlbvh, tsweep)
+    for m in mods:
+        m.reset_launches()
+    k = _dist_local(engine, cand, eps, p_own, croot, card)
+    torch.cuda.synchronize()
+    launched = {kk: v for m in mods for kk, v in m.LAUNCHES.items() if v}
+    p = _dist_local(engine, cand, eps, p_own, croot, "cpu")
+    for a, b, what in zip(k, p, ("counts_all", "minroot_all", "counts_own",
+                                 "minroot_own", "overflow")):
+        assert (a == b) if what == "overflow" else torch.equal(a, b), what
+    assert set(launched) == set(DIST_KERNELS[engine]), launched
+
+
+@pytest.mark.cuda
+def test_neighbor_buckets_of_far_rows_on_the_card_are_the_cpus(card):
+    rows = np.array([[1e30, 0, 0], [-1e30, 1e30, 3e9], [1e30] * 3,
+                     [-3e9, 2.2e9, -1e30], [0.5, -0.25, 0.125]], np.float32)
+    for dims, side, table in ((3, 0.02, 64), (2, 1.0, 1 << 16)):
+        spec = tgrid.GridSpec(side=side, origin=(0.0, 0.0, 0.0),
+                              table_size=table, capacity=8, dims=dims)
+        kb, kv = tgrid.neighbor_buckets(torch.as_tensor(rows, device=card),
+                                        spec)
+        pb, pv = tgrid.neighbor_buckets(torch.as_tensor(rows), spec)
+        assert torch.equal(kb.cpu(), pb) and torch.equal(kv.cpu(), pv)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", list(DIST_KERNELS))
+def test_distributed_thread_group_on_the_card_is_the_cpus(card, engine):
+    from repro_torch.distributed.comm import ThreadGroup
+    from repro_torch.distributed.dbscan_dist import (DistConfig,
+                                                     dbscan_distributed)
+    # iono3d at ε = 4.0 clusters and hooks without regrowing the grid
+    # engine, whose plain sweep (padded 27 × C windows) is slow once C grows
+    pts = synth.load("iono3d", 8_000, seed=3)
+    cfg = DistConfig(local_engine=engine)
+    k = dbscan_distributed(pts, 4.0, 16, ThreadGroup(4, card), cfg=cfg)
+    p = dbscan_distributed(pts, 4.0, 16, ThreadGroup(4, "cpu"), cfg=cfg)
+    assert torch.equal(k.labels.cpu(), p.labels)
+    assert torch.equal(k.core.cpu(), p.core)
+    assert k.n_rounds == p.n_rounds

@@ -3,7 +3,11 @@ repro_torch.launch.cluster``) on the CPU against the JAX reference's
 ``repro.launch.cluster.main`` on the same arguments: the same result
 (labels, core, counts, ``n_rounds`` bitwise) and the same printed
 statistics; it runs on ``cuda`` by default and raises without a card
-unless given ``--device cpu``."""
+unless given ``--device cpu``. ``--distributed --device cpu`` (one gloo
+rank) prints the statistics of the reference's ``--distributed``; the
+reference's driver cannot run on one device, so its run here has two fake
+CPU devices (the labels are global ids, the same for any number of
+ranks)."""
 import os
 import subprocess
 import sys
@@ -61,8 +65,25 @@ def test_cli_runs_on_cuda_unless_told_otherwise(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         cluster.main(["-n", "100"])
-    with pytest.raises(SystemExit):      # no --distributed until ported
+    with pytest.raises(RuntimeError, match="device='cpu'"):
         cluster.main(["-n", "100", "--distributed"])
+
+
+def test_cli_distributed_matches_reference_stats(capsys):
+    args = ["--dataset", "roadnet2d", "-n", "4000", "--eps", "0.02",
+            "--min-pts", "8", "--distributed"]
+    res = cluster.main(args + ["--device", "cpu"])
+    out = capsys.readouterr().out
+    env = dict(os.environ, PYTHONPATH=SRC, JAX_PLATFORMS="cpu",
+               XLA_FLAGS="--xla_force_host_platform_device_count=2")
+    ref = subprocess.run([sys.executable, "-m", "repro.launch.cluster"]
+                         + args, env=env, capture_output=True, text=True,
+                         timeout=600)
+    assert ref.returncode == 0, ref.stderr[-2000:]
+    assert _stats(out) == _stats(ref.stdout)
+    assert "build=0.000s" in out.splitlines()[-1]
+    assert res.labels.dtype == torch.int32 and res.core.dtype == torch.bool
+    assert int(res.core.sum()) == 125
 
 
 def test_cli_as_a_module_loads_no_jax():

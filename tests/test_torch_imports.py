@@ -22,6 +22,8 @@ MODULES = ["repro_torch", "repro_torch.baselines",
            "repro_torch.data", "repro_torch.data.pipeline",
            "repro_torch.data.synth",
            "repro_torch.distributed", "repro_torch.distributed.checkpoint",
+           "repro_torch.distributed.comm",
+           "repro_torch.distributed.dbscan_dist",
            "repro_torch.kernels", "repro_torch.kernels.build",
            "repro_torch.kernels.bvh_sweep",
            "repro_torch.kernels.cross_sweep",
@@ -81,6 +83,13 @@ def test_import_loads_no_jax_and_no_repro():
         "dclust.run(pts, 0.1, 2, device='cpu')\n"
         "from repro_torch.data.pipeline import point_stream\n"
         "list(point_stream('taxi2d', 10, 4))\n"
+        "from repro_torch.distributed import comm\n"
+        "from repro_torch.distributed.dbscan_dist import DistConfig,"
+        " dbscan_distributed\n"
+        "for e in ('grid', 'csr', 'bvh', 'brute'):\n"
+        "    dbscan_distributed(pts + [[0.02, 0.0, 0.0], [0.5, 0.5, 0.0]],"
+        " 0.1, 2, comm.ThreadGroup(2, 'cpu'),"
+        " cfg=DistConfig(local_engine=e))\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or"
         " m.startswith(('jax.', 'jaxlib', 'repro.')) or m == 'repro')\n"
         "print('BAD', bad)\n")
