@@ -16,7 +16,9 @@ load); the sharded serving tier (``tier``: ``ShardedTier``, its assign,
 ingest, compaction, partial gathers, recovery and hedged legs); the
 paper's fig. 4 systems (DClust, grid, FDBSCAN, G-DBSCAN, brute); and the
 distributed driver on thread ranks of the card and through the CLI's
-``--distributed``. Phases:
+``--distributed``; and the LM serving path (``repro_torch.models``:
+forward, prefill, decode) of the ten architectures, which runs plain
+PyTorch and launches none of the kernels. Phases:
 
   1. environment: the card's name and power limit (nvidia-smi);
   2. build: every kernel source in src/repro_torch/csrc, one nvcc each,
@@ -65,7 +67,29 @@ distributed driver on thread ranks of the card and through the CLI's
      lo/hi override, signed zeros) and at full size (roadnet2d 435,000,
      iono3d 1,000,000), with the engines' build time on the host and one
      build's kernel launches and device operations (torch.profiler);
-  4. whole path at n = 20,000 (roadnet2d, iono3d at the full-size ε and
+  3b. LM serving (TF32 off): (a) each of the ten reduced archs, parameters
+     made on the CPU and copied, on the card and on the CPU in f32:
+     forward over 64 tokens, a 56-token prefill (cache_len 64) and 8
+     decode steps, logits, aux and every cache leaf at the CPU tests' bar
+     (rtol 2e-4, atol 2e-5), integer leaves and every MoE routing call's
+     top-k indices bitwise (a differing index prints the probability gap
+     and fails); (b) qwen3-8b at full width, depth 2, f32, B = 1, 128
+     tokens: forward logits card against CPU at that bar; (b, c)
+     qwen3-8b, granite-moe-1b-a400m and hymba-1.5b at full width and
+     depth, parameters made on the card, bf16: 4 requests, a 2,048-token
+     prefill (cache_len 2,080) and 32 greedy decode steps (timed); then,
+     at the check config (granite at capacity_factor n_experts / top_k:
+     nothing drops), the prefill and steps fed the same tokens and the
+     forward over those 2,080 tokens (hymba: padded to 2,176, the scan's
+     chunk), the prefill's and every step's logits finite and within
+     LM_BF16_TOL of the forward's; the same in f32 within LM_F32_TOL, and
+     the bf16 forward's distance to the f32 forward (hymba's also with
+     its SSM heads in f32), and the f32 forward's with its embedding
+     table rounded to bf16; prefill seconds, decode ms a token, tokens/s,
+     host syncs and a traced step, peak memory, model FLOP/s over 989
+     TFLOP/s (``model_flops``' 2·N·D, and the weight products the path
+     does), granite's capacity drops per layer; the port's
+     kernel launch counts set to 0 before and read after (none);
      minPts, where it is all noise, and iono3d at ε = 4.0, minPts = 16,
      where it clusters and hooks), every path:
      device="cpu" with the plain versions against the card with the
@@ -166,6 +190,8 @@ prints no result.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+import gc
 import json
 import statistics
 import subprocess
@@ -308,6 +334,32 @@ DIST_STEPS = ("cuts", "all_to_all", "halo", "local_build", "stage1",
               "components", "label_rounds", "border", "return")
 
 
+# the LM serving path: (a) every reduced arch, card against CPU, in f32:
+# forward over S tokens, a PRE-token prefill (cache_len S), STEPS decode
+# steps; (b) LM_WIDTH at full width and depth, and at depth 2 in f32
+# against the CPU (B = 1, LM_WIDTH_S tokens); (b, c) the LM_FULL archs at
+# full width and depth in bf16 serving LM_SERVE (a prompt prefill, greedy
+# decode steps), every logit held to the forward's over the same tokens
+LM_SEED = 0
+LM_REDUCED = dict(B=2, S=64, PRE=56, STEPS=8)
+LM_SERVE = dict(B=4, prompt=2_048, cache_len=2_080, steps=32)
+LM_WARM = 128          # tokens of the warm-up prefill before the timed one
+LM_WIDTH, LM_WIDTH_S = "qwen3-8b", 128
+LM_FULL = ("qwen3-8b", "granite-moe-1b-a400m", "hymba-1.5b")
+# max |logit difference| allowed between a served position (prefill's last,
+# each decode step) and the forward's there, measured once on the card
+# (PERF.md §5 gives the reason for each). The comparison runs hold an MoE
+# arch at capacity_factor n_experts / top_k (C = S: nothing drops, as in
+# decode), so served and forward logits compute the same function. bf16:
+# the bf16 forward's own distance to the f32 forward on the same tokens
+# (0.354 / 0.066 / 0.698 for qwen3 / granite / hymba), rounded up. f32:
+# measured 1.1e-4 / 5.0e-6 / 1.4e-4, a margin of 7x or more for another
+# summation order
+LM_BF16_TOL = {"qwen3-8b": 0.4, "granite-moe-1b-a400m": 0.1,
+               "hymba-1.5b": 0.75}
+LM_F32_TOL = 1e-3
+BF16_PEAK = 989e12     # dense bf16 FLOP/s of one H100 SXM at 700 W
+
 class SmokeFailure(Exception):
     pass
 
@@ -354,7 +406,12 @@ class Env:
                                          csr_sweep, frontier_sweep,
                                          gathered_sweep, lbvh, morton, ops,
                                          pairwise_sweep, ref)
+        from repro_torch import configs as lmc
         from repro_torch.launch import cluster
+        from repro_torch.models import model as lm
+        from repro_torch.models import moe as lm_moe
+        from repro_torch.models import ssm as lm_ssm
+        from repro_torch.models import transformer as lm_tf
         from repro_torch.serve import snapshot
         self.torch, self.repro_torch = torch, repro_torch
         self.dd, self.comm, self.cluster = dbscan_dist, comm, cluster
@@ -365,6 +422,8 @@ class Env:
         self.nb, self.bvh, self.fdbscan = neighbors, bvh, fdbscan
         self.dclust, self.gdbscan, self.labels = dclust, gdbscan, labels
         self.grid = grid
+        self.lmc, self.lm, self.lm_moe, self.lm_tf = lmc, lm, lm_moe, lm_tf
+        self.lm_ssm = lm_ssm
         self.bvhk, self.morton, self.lbvh = bvh_sweep, morton, lbvh
         self.modules = (csr_sweep, frontier_sweep, pairwise_sweep,
                         gathered_sweep, cross_sweep, morton, bvh_sweep, lbvh)
@@ -3428,6 +3487,425 @@ def kernels_line(per) -> dict:
     return {"kernels": out}
 
 
+
+# --------------------------------------------------------------------------
+# phase 7: LM serving
+
+
+def lm_prompt(batch, n):
+    out = dict(batch, tokens=batch["tokens"][:, :n])
+    if "pos3" in out:
+        out["pos3"] = batch["pos3"][:, :n]
+    return out
+
+
+class RouteRecorder(CallRecorder):
+    """While active, keeps the top-k indices and the probabilities of
+    every ``moe.route`` call where they are (no copy, no sync)."""
+
+    def __init__(self, E):
+        super().__init__(E.lm_moe, "route")
+        self.out = []
+
+    def __enter__(self):
+        def record(*args, **kw):
+            out = self.real(*args, **kw)
+            self.out.append((out[2], out[0]))
+            return out
+        setattr(self.module, self.attr, record)
+        return self
+
+
+def lm_session(E, cfg, params, batch):
+    """The reduced serving session of part (a): forward over LM_REDUCED's
+    S tokens, a PRE-token prefill (cache_len S) and STEPS decode steps.
+    Returns [(what, output on the CPU)] and the routing calls."""
+    S, PRE, STEPS = (LM_REDUCED[k] for k in ("S", "PRE", "STEPS"))
+    with RouteRecorder(E) as rec:
+        logits, _, aux = E.lm.forward(cfg, params, batch)
+        lg, cache = E.lm.prefill(cfg, params, lm_prompt(batch, PRE),
+                                 cache_len=S)
+        outs = [("forward logits", logits), ("aux", aux),
+                ("prefill logits", lg)]
+        outs += [(f"prefill {k}", v.clone()) for k, v in cache.items()]
+        for t in range(PRE, PRE + STEPS):
+            lg, cache = E.lm.decode_step(cfg, params, cache,
+                                         batch["tokens"][:, t:t + 1], t)
+            outs.append((f"decode {t} logits", lg))
+            outs += [(f"decode {t} {k}", v.clone()) for k, v in cache.items()]
+    return [(k, v.cpu()) for k, v in outs], \
+        [(e.cpu(), p.cpu()) for e, p in rec.out]
+
+
+def lm_check_close(E, what, g, c):
+    """Card output ``g`` against CPU output ``c``: floats at the CPU tests'
+    bar (rtol 2e-4, atol 2e-5), integers bitwise; the worst error's share
+    of the bar."""
+    t = E.torch
+    check(g.dtype == c.dtype and g.shape == c.shape,
+          f"{what}: {g.dtype}{list(g.shape)} vs {c.dtype}{list(c.shape)}")
+    if not c.dtype.is_floating_point:
+        check(t.equal(g, c), f"{what}: {int((g != c).sum())} integers differ")
+        return 0.0
+    share = float(((g - c).abs() / (2e-5 + 2e-4 * c.abs())).max()) \
+        if c.numel() else 0.0
+    check(share <= 1.0, f"{what}: card vs CPU {share:.2f}x the bar "
+          f"(max abs {float((g - c).abs().max()):.3g})")
+    return share
+
+
+def lm_check_routing(E, name, gpu, cpu):
+    """Top-k indices of every routing call equal; on a differing index,
+    the gap between the K-th and (K+1)-th probability there, then fail."""
+    t = E.torch
+    check(len(gpu) == len(cpu), f"{name}: {len(gpu)} routing calls on the "
+          f"card, {len(cpu)} on the CPU")
+    for i, ((ge, gp), (ce, cp)) in enumerate(zip(gpu, cpu)):
+        if t.equal(ge, ce):
+            continue
+        at = (ge != ce).any(-1).nonzero()[0].tolist()
+        K = ce.shape[-1]
+        srt = t.sort(cp[tuple(at)], descending=True).values
+        gap = float(srt[K - 1] - srt[K]) if K < srt.numel() else float("nan")
+        log(f"    {name}: routing call {i} differs at token {at}: card "
+            f"{ge[tuple(at)].tolist()}, cpu {ce[tuple(at)].tolist()}, gap "
+            f"between the K-th and next probability {gap:.3g}")
+        raise SmokeFailure(f"{name}: routing call {i} differs (gap {gap:.3g})")
+
+
+def lm_reduced_arch(E, name) -> float:
+    """Part (a) for one reduced arch (``tests/test_torch_lm_card.py`` runs
+    it too): parameters made on the CPU and copied, on the card and on the
+    CPU in f32 (TF32 off). Returns the worst output's share of the bar."""
+    t = E.torch
+    cpu = t.device("cpu")
+    cfg = E.lmc.ALL[name].reduced()
+    params = E.lm.init_params(cfg, LM_SEED, device=cpu)
+    batch = E.lm.synth_batch(cfg, LM_REDUCED["B"], LM_REDUCED["S"],
+                             LM_SEED + 1, train=False, device=cpu)
+    c_out, c_route = lm_session(E, cfg, params, batch)
+    t0 = time.perf_counter()
+    g_out, g_route = lm_session(
+        E, cfg, E.lm_tf.tree_map(lambda x: x.to(E.dev), params),
+        E.lm_tf.tree_map(lambda x: x.to(E.dev), batch))
+    wall = time.perf_counter() - t0
+    check([k for k, _ in g_out] == [k for k, _ in c_out],
+          f"{name}: outputs differ in kind")
+    worst = max(lm_check_close(E, f"{name} {k}", g, c)
+                for (k, g), (_, c) in zip(g_out, c_out))
+    steps = 2 + LM_REDUCED["STEPS"]
+    check(len(c_route) == (steps * cfg.n_layers if cfg.is_moe else 0),
+          f"{name}: {len(c_route)} routing calls")
+    lm_check_routing(E, name, g_route, c_route)
+    log(f"  {name} (reduced): {len(g_out)} outputs equal the CPU's "
+        f"(worst {worst:.3f} of the bar), {len(g_route)} routing calls "
+        f"equal; card session {wall:.2f} s")
+    return worst
+
+
+def lm_serve_run(E, cfg, params, batch, feed=None):
+    """One request batch at LM_SERVE: a prompt prefill, then decode steps
+    fed greedily (the argmax of the last logits) or with ``feed``'s
+    tokens. Returns the served logits (the prefill's last, then each
+    step's), the tokens fed, prefill seconds, each step's seconds (host
+    clock ending in a synchronize) and the prefill's routing calls."""
+    t = E.torch
+    P, T, steps = (LM_SERVE[k] for k in ("prompt", "cache_len", "steps"))
+    t.cuda.synchronize()
+    with RouteRecorder(E) as route:
+        t0 = time.perf_counter()
+        lg, cache = E.lm.prefill(cfg, params, lm_prompt(batch, P),
+                                 cache_len=T)
+        t.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+    served, fed, step_s = [lg[:, -1]], [], []
+    for j, pos in enumerate(range(P, P + steps)):
+        nxt = served[-1].argmax(-1).to(t.int32)[:, None] if feed is None \
+            else feed[:, j:j + 1]
+        fed.append(nxt)
+        t0 = time.perf_counter()
+        lg, cache = E.lm.decode_step(cfg, params, cache, nxt, pos)
+        t.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        served.append(lg[:, -1])
+    return t.stack(served, 1), t.cat(fed, 1), prefill_s, step_s, route.out
+
+
+def lm_host_syncs(E, fn) -> int:
+    """Synchronizing operations (a host read of a device value, a copy
+    from pageable memory) that torch.cuda's sync debug mode reports in one
+    call of ``fn``."""
+    import warnings
+    t = E.torch
+    t.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        t.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            t.cuda.set_sync_debug_mode("default")
+    return sum("synchronizing CUDA operation" in str(w.message)
+               for w in caught)
+
+
+@contextlib.contextmanager
+def lm_ssm_in_f32(E):
+    """While active, every Mamba head runs in f32 on its input and returns
+    its output in the input's dtype: the bf16 forward with the SSM heads
+    taken out of bf16 (the share of Hymba's bf16 error that they carry)."""
+    real = E.lm_ssm.mamba_head
+
+    def f32_head(x, params, **kw):
+        y, h = real(x.float(), params, **kw)
+        return y.to(x.dtype), h
+    E.lm_ssm.mamba_head = f32_head
+    try:
+        yield
+    finally:
+        E.lm_ssm.mamba_head = real
+
+
+def lm_matmul_flops(cfg, B, P):
+    """(prefill, decode step) FLOPs of the weight products serving does, 2
+    a multiply-add: a prefill of B x P tokens multiplies each token by
+    every active weight but the embedding table (a lookup) and the
+    unembedding, which it applies once a sequence (it keeps the last
+    position); a decode step multiplies each of B tokens by every active
+    weight but the embedding table. Attention's score and apply products
+    are not counted, as in ``model_flops``."""
+    table = cfg.vocab * cfg.d_model
+    body = cfg.active_param_count() - table * (1 if cfg.tie_embeddings
+                                               else 2)
+    return 2.0 * (body * B * P + table * B), 2.0 * (body + table) * B
+
+
+def lm_serve_full(E, name, smi):
+    """Parts (b) and (c): one arch at full width and depth, parameters made
+    on the card. In bf16: LM_SERVE's batch, a prompt prefill and greedy
+    decode steps (timed). Then the comparison runs at the check config (an
+    MoE arch at capacity_factor n_experts / top_k, so that no entry drops
+    and the forward computes what the prefill and decode do; the served
+    config otherwise): the prefill and decode steps fed the timed run's
+    tokens (the timed run itself where the configs are one) and the
+    forward over the prompt and those tokens (padded to the scan's chunk
+    for Hymba), the prefill's and every step's logits held to the
+    forward's at the same positions within LM_BF16_TOL; the same in f32 on
+    the same parameters within LM_F32_TOL; and the bf16 forward's logits
+    against the f32 forward's there (the bf16 path's own error), for
+    Hymba also with its SSM heads in f32, and the f32 forward with its
+    embedding table rounded to bf16 against the f32 forward (how far the
+    network carries one rounding of its input)."""
+    t = E.torch
+    cfg = E.lmc.ALL[name]
+    chk = dataclasses.replace(cfg, capacity_factor=cfg.n_experts
+                              / cfg.top_k) if cfg.is_moe else cfg
+    B, P, T, steps = (LM_SERVE[k] for k in ("B", "prompt", "cache_len",
+                                            "steps"))
+    n_fwd = -(-T // cfg.ssm_chunk) * cfg.ssm_chunk if cfg.block == "hymba" \
+        else T
+    gc.collect()
+    t.cuda.empty_cache()
+    t.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = E.lm.init_params(cfg, LM_SEED, device=E.dev)
+    t.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    batch = E.lm.synth_batch(cfg, B, n_fwd, LM_SEED + 1, train=False,
+                             device=E.dev)
+    # warm-up (cuBLAS handles, the allocator): a short prefill and a step
+    _, c = E.lm.prefill(cfg, params, lm_prompt(batch, LM_WARM),
+                        cache_len=LM_WARM + 8)
+    E.lm.decode_step(cfg, params, c, batch["tokens"][:, LM_WARM:LM_WARM + 1],
+                     LM_WARM)
+    def step():
+        E.lm.decode_step(cfg, params, c,
+                         batch["tokens"][:, LM_WARM + 1:LM_WARM + 2],
+                         LM_WARM + 1)
+    syncs = lm_host_syncs(E, step)
+    trace_s, rows = profile_device(E, step)
+    del c
+    served, fed, prefill_s, step_s, pre_route = lm_serve_run(
+        E, cfg, params, batch)
+    full = dict(batch, tokens=t.cat([batch["tokens"][:, :P], fed,
+                                     batch["tokens"][:, T:n_fwd]], 1))
+    if chk is not cfg:
+        served = lm_serve_run(E, chk, params, batch, feed=fed)[0]
+    with RouteRecorder(E) as fwd_route:
+        t0 = time.perf_counter()
+        ref = E.lm.forward(chk, params, full)[0][:, P - 1:T]
+        t.cuda.synchronize()
+        forward_s = time.perf_counter() - t0
+    peak = t.cuda.max_memory_allocated() / 2 ** 30
+    tol = LM_BF16_TOL[name]
+    errs = lm_errors(E, name, "bf16", served, ref, tol)
+    # f32: the same parameters, the bf16 run's tokens
+    chk32 = dataclasses.replace(chk, dtype="float32")
+    served32, _, prefill32_s, step32_s, _ = lm_serve_run(E, chk32, params,
+                                                         batch, feed=fed)
+    ref32 = E.lm.forward(chk32, params, full)[0][:, P - 1:T]
+    errs32 = lm_errors(E, name, "f32", served32, ref32, LM_F32_TOL)
+    bf16_err = float((ref - ref32).abs().max())
+    # the f32 forward with only its embedding table rounded to bf16: how
+    # far the network carries one bf16 rounding of its input
+    rounded = dict(params, embed=params["embed"].to(t.bfloat16).float())
+    in16_err = float((E.lm.forward(chk32, rounded, full)[0][:, P - 1:T]
+                      - ref32).abs().max())
+    del rounded
+    ssm_f32_err = None
+    if cfg.block == "hymba":
+        with lm_ssm_in_f32(E):
+            ssm_f32_err = float((E.lm.forward(chk, params, full)[0]
+                                 [:, P - 1:T] - ref32).abs().max())
+    scale = float(ref32.abs().max())
+    n_params = sum(x.numel() for _, x in E.lm_tf.tree_leaves(params))
+    del params, ref, ref32, served, served32, full, batch
+    gc.collect()
+    t.cuda.empty_cache()
+    ShapeConfig = E.lmc.ShapeConfig
+    pre_flops = E.lm.model_flops(cfg, ShapeConfig("serve", "prefill", P, B))
+    dec_flops = E.lm.model_flops(cfg, ShapeConfig("serve", "decode", T, B))
+    pre_mm, dec_mm = lm_matmul_flops(cfg, B, P)
+    dec_s = statistics.median(step_s)
+    v = dict(params=n_params, init_s=init_s, prefill_s=prefill_s,
+             prefill_tok_s=B * P / prefill_s, decode_ms=dec_s * 1e3,
+             decode_ms_mean=sum(step_s) / steps * 1e3,
+             decode_ms_first=step_s[0] * 1e3, decode_tok_s=B / dec_s,
+             decode_host_syncs=syncs, traced_step_ms=trace_s * 1e3,
+             traced_step_busy_ms=sum(r[1] for r in rows),
+             traced_step_launches=sum(r[2] for r in rows),
+             forward_s=forward_s, peak_gib=peak,
+             prefill_mfu=pre_flops / prefill_s / BF16_PEAK,
+             decode_mfu=dec_flops / dec_s / BF16_PEAK,
+             prefill_matmul_share=pre_mm / prefill_s / BF16_PEAK,
+             decode_matmul_share=dec_mm / dec_s / BF16_PEAK,
+             check_capacity_factor=chk.capacity_factor if cfg.is_moe
+             else None,
+             prefill_err=errs[0], decode_err=max(errs[1:]), tol=tol,
+             f32_prefill_err=errs32[0], f32_decode_err=max(errs32[1:]),
+             f32_tol=LM_F32_TOL, bf16_forward_err=bf16_err,
+             bf16_forward_err_ssm_f32=ssm_f32_err,
+             f32_forward_err_embed_bf16=in16_err,
+             logit_scale=scale, f32_prefill_s=prefill32_s,
+             f32_decode_ms=statistics.median(step32_s) * 1e3)
+    log(f"  {name} (full width, {cfg.n_layers} layers, {n_params / 1e9:.3f}B "
+        f"parameters f32, bf16 compute; {smi}): B = {B}, prompt {P}, "
+        f"cache_len {T}, {steps} greedy decode steps")
+    log(f"    prefill {prefill_s:.3f} s ({v['prefill_tok_s']:.0f} tokens/s; "
+        f"model FLOP/s {v['prefill_mfu']:.2%} of {BF16_PEAK / 1e12:.0f} "
+        f"TFLOP/s by model_flops' 2·N·D, {v['prefill_matmul_share']:.2%} "
+        f"by the products prefill does); decode {v['decode_ms']:.2f} ms a "
+        f"token (median; mean {v['decode_ms_mean']:.2f}, first "
+        f"{v['decode_ms_first']:.2f}), {v['decode_tok_s']:.1f} tokens/s, "
+        f"model FLOP/s {v['decode_mfu']:.3%} ({v['decode_matmul_share']:.3%}"
+        f"), {syncs} host syncs a step; forward over {n_fwd} tokens "
+        f"{forward_s:.3f} s; peak {peak:.2f} GiB; init {init_s:.2f} s")
+    if rows:
+        log(f"    one decode step traced (torch.profiler, position "
+            f"{LM_WARM + 1}): host {v['traced_step_ms']:.2f} ms, device busy "
+            f"{v['traced_step_busy_ms']:.2f} ms in "
+            f"{v['traced_step_launches']} kernels; largest (name, ms, "
+            f"launches): {json.dumps(rows[:6])}")
+    else:
+        log("    one decode step traced: no device time in the trace (not "
+            "measured)")
+    at = "" if chk is cfg else \
+        f" (at capacity_factor {chk.capacity_factor:g}, nothing dropped)"
+    log(f"    served logits vs the forward's{at}, bf16: prefill max |diff| "
+        f"{errs[0]:.4g}, decode steps {max(errs[1:]):.4g} (tolerance {tol}); "
+        f"f32 on the same tokens: {errs32[0]:.4g}, {max(errs32[1:]):.4g} "
+        f"(tolerance {LM_F32_TOL}; prefill {prefill32_s:.3f} s, decode "
+        f"{v['f32_decode_ms']:.2f} ms); the bf16 forward vs the f32 "
+        f"forward there {bf16_err:.4g}"
+        + ("" if ssm_f32_err is None else
+           f", {ssm_f32_err:.4g} with the SSM heads in f32")
+        + f"; the f32 forward with its embedding table rounded to bf16 vs "
+        f"the f32 forward {in16_err:.4g}; max |logit| {scale:.3f}; all "
+        "finite")
+    if cfg.is_moe:
+        v["drops"] = [lm_drops(E, cfg, e, P) for e, _ in pre_route]
+        v["forward_drops"] = [lm_drops(E, chk, e, n_fwd)
+                              for e, _ in fwd_route.out]
+        check(not any(v["forward_drops"]),
+              f"{name}: the check forward dropped {v['forward_drops']}")
+        C = E.lm_moe.capacity(P, cfg.n_experts, cfg.top_k,
+                              cfg.capacity_factor)
+        log(f"    capacity drops per layer of the timed prefill (C = {C} "
+            f"of {P * cfg.top_k} entries a sequence): {v['drops']}; the "
+            f"check forward over {n_fwd} dropped none")
+    return v
+
+
+def lm_errors(E, name, what, served, ref, tol) -> list:
+    """Max |served - forward| logits at each served position (the
+    prefill's last, then each step's), all finite and within ``tol``."""
+    t = E.torch
+    check(bool(t.isfinite(served).all()) and bool(t.isfinite(ref).all()),
+          f"{name}: {what} logits not finite")
+    errs = (served.float() - ref.float()).abs().amax(dim=(0, 2)).tolist()
+    check(max(errs) <= tol, f"{name}: {what} served logits {max(errs):.4g} "
+          f"from the forward's (tolerance {tol})")
+    return errs
+
+
+def lm_drops(E, cfg, top_e, S) -> int:
+    """Entries a routing call's capacity drops: per sequence and expert,
+    the entries past the first C (its rank is its order in the sequence)."""
+    t = E.torch
+    C = E.lm_moe.capacity(S, cfg.n_experts, cfg.top_k, cfg.capacity_factor)
+    counts = t.stack([t.bincount(row.reshape(-1), minlength=cfg.n_experts)
+                      for row in top_e])
+    return int((counts - C).clamp_min(0).sum())
+
+
+def lm_width_check(E):
+    """qwen3-8b at full width and depth 2 in f32, on the card and on the
+    CPU: B = 1, S = 128, forward logits at the CPU tests' bar."""
+    t = E.torch
+    cfg = dataclasses.replace(E.lmc.ALL[LM_WIDTH], n_layers=2,
+                                dtype="float32")
+    cpu = t.device("cpu")
+    params = E.lm.init_params(cfg, LM_SEED, device=cpu)
+    batch = E.lm.synth_batch(cfg, 1, LM_WIDTH_S, LM_SEED + 1, train=False,
+                             device=cpu)
+    t0 = time.perf_counter()
+    c = E.lm.forward(cfg, params, batch)[0]
+    cpu_s = time.perf_counter() - t0
+    g = E.lm.forward(cfg, E.lm_tf.tree_map(lambda x: x.to(E.dev), params),
+                     E.lm_tf.tree_map(lambda x: x.to(E.dev), batch))[0].cpu()
+    share = lm_check_close(E, f"{LM_WIDTH} depth 2 forward logits", g, c)
+    log(f"  {LM_WIDTH} at full width, depth 2, f32: card forward logits "
+        f"equal the CPU's (worst {share:.3f} of the bar; CPU {cpu_s:.1f} s)")
+    del params
+    gc.collect()
+    t.cuda.empty_cache()
+    return share
+
+
+def phase_lm(E, smi):
+    """The LM serving path: (a) ten reduced archs, card against CPU; (b)
+    qwen3-8b at full width and depth, and its width check at depth 2; (c)
+    granite-moe-1b-a400m and hymba-1.5b at full width and depth. TF32 off
+    throughout; the port's DBSCAN kernels launch no time."""
+    t = E.torch
+    old = (t.backends.cuda.matmul.allow_tf32, t.backends.cudnn.allow_tf32)
+    t.backends.cuda.matmul.allow_tf32 = False
+    t.backends.cudnn.allow_tf32 = False
+    try:
+        E.reset_launches()
+        out = dict(reduced={name: lm_reduced_arch(E, name)
+                            for name in sorted(E.lmc.ALL)})
+        out["width"] = lm_width_check(E)
+        for name in LM_FULL:
+            out[name] = lm_serve_full(E, name, smi)
+        launched = {k: v for k, v in E.launches().items() if v}
+        check(not launched, f"the LM path launched DBSCAN kernels {launched}")
+        log("  launches of the port's kernels on the LM path: none")
+    finally:
+        t.backends.cuda.matmul.allow_tf32, t.backends.cudnn.allow_tf32 = old
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -3470,6 +3948,7 @@ def main() -> int:
     timed("build", build)
     timed("kernel parity", phase_parity, E)
     timed("LBVH build parity", phase_lbvh, E)
+    lm_out = timed("LM serving", phase_lm, E, smi)
     timed("whole path, reduced size", phase_reduced, E)
     runs = timed("whole path, full size", phase_full, E)
     timed("distributed", phase_distributed, E, runs)
@@ -3478,6 +3957,7 @@ def main() -> int:
 
     log("phases s: " + ", ".join(f"{k} {v:.1f}" for k, v in phases.items())
         + f"; total {time.perf_counter() - t_start:.1f}")
+    log("LM serving: " + json.dumps(lm_out))
     log(smi)
     print(json.dumps(kernels_line(per)))
     print(json.dumps({"ok": True, "device": {

@@ -15,6 +15,16 @@ SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 MODULES = ["repro_torch", "repro_torch.baselines",
            "repro_torch.baselines.brute", "repro_torch.baselines.dclust",
            "repro_torch.baselines.fdbscan", "repro_torch.baselines.gdbscan",
+           "repro_torch.configs", "repro_torch.configs.base",
+           "repro_torch.configs.granite_moe_1b_a400m",
+           "repro_torch.configs.h2o_danube_1_8b",
+           "repro_torch.configs.hymba_1_5b",
+           "repro_torch.configs.moonshot_v1_16b_a3b",
+           "repro_torch.configs.qwen2_vl_72b", "repro_torch.configs.qwen3_8b",
+           "repro_torch.configs.stablelm_12b",
+           "repro_torch.configs.starcoder2_3b",
+           "repro_torch.configs.whisper_large_v3",
+           "repro_torch.configs.xlstm_1_3b",
            "repro_torch.core", "repro_torch.core.bvh",
            "repro_torch.core.dbscan", "repro_torch.core.engines",
            "repro_torch.core.grid", "repro_torch.core.labels",
@@ -33,6 +43,10 @@ MODULES = ["repro_torch", "repro_torch.baselines",
            "repro_torch.kernels.morton", "repro_torch.kernels.ops",
            "repro_torch.kernels.pairwise_sweep", "repro_torch.kernels.ref",
            "repro_torch.launch", "repro_torch.launch.cluster",
+           "repro_torch.models", "repro_torch.models.encdec",
+           "repro_torch.models.layers", "repro_torch.models.model",
+           "repro_torch.models.moe", "repro_torch.models.ssm",
+           "repro_torch.models.transformer", "repro_torch.models.xlstm",
            "repro_torch.serve", "repro_torch.serve.assign",
            "repro_torch.serve.faults", "repro_torch.serve.health",
            "repro_torch.serve.ingest", "repro_torch.serve.resilience",
@@ -90,6 +104,15 @@ def test_import_loads_no_jax_and_no_repro():
         "    dbscan_distributed(pts + [[0.02, 0.0, 0.0], [0.5, 0.5, 0.0]],"
         " 0.1, 2, comm.ThreadGroup(2, 'cpu'),"
         " cfg=DistConfig(local_engine=e))\n"
+        "from repro_torch.configs import ALL\n"
+        "from repro_torch.models import model as M\n"
+        "for name in ('qwen3-8b', 'hymba-1.5b', 'whisper-large-v3'):\n"
+        "    cfg = ALL[name].reduced()\n"
+        "    lm = M.LM(cfg, M.init_params(cfg, 0, device='cpu'))\n"
+        "    b = M.synth_batch(cfg, 1, 16, 0, train=False, device='cpu')\n"
+        "    lm(b)\n"
+        "    _, c = lm.prefill(b, 24)\n"
+        "    lm.decode_step(c, b['tokens'][:, :1], 16)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or"
         " m.startswith(('jax.', 'jaxlib', 'repro.')) or m == 'repro')\n"
         "print('BAD', bad)\n")
@@ -121,6 +144,24 @@ def test_entry_points_raise_without_cuda(monkeypatch):
             repro_torch.dbscan(pts, 0.1, 2, engine=engine)
     res = repro_torch.dbscan(pts, 0.1, 2, device="cpu")
     assert res.labels.tolist() == [0, 0, 0, 0]
+
+
+def test_lm_entry_points_raise_without_cuda(monkeypatch):
+    from repro_torch.configs import ALL
+    from repro_torch.models import model as M
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = ALL["qwen3-8b"].reduced()
+    params = M.init_params(cfg, 0, device="cpu")
+    tree = {"embed": np.zeros((cfg.vocab, cfg.d_model), np.float32)}
+    for call in (lambda: M.init_params(cfg, 0),
+                 lambda: M.synth_batch(cfg, 1, 8, 0),
+                 lambda: M.init_cache(cfg, 1, 8),
+                 lambda: M.params_from_jax(cfg, tree),
+                 lambda: M.init_params(cfg, 0, device="cuda")):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    assert M.init_cache(cfg, 1, 8, device="meta")["k"].is_meta
+    assert M.LM(cfg, params).device.type == "cpu"
 
 
 def test_kernel_build_is_keyed_and_raises_without_nvcc(monkeypatch,
