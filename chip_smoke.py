@@ -16,9 +16,11 @@ load); the sharded serving tier (``tier``: ``ShardedTier``, its assign,
 ingest, compaction, partial gathers, recovery and hedged legs); the
 paper's fig. 4 systems (DClust, grid, FDBSCAN, G-DBSCAN, brute); and the
 distributed driver on thread ranks of the card and through the CLI's
-``--distributed``; and the LM serving path (``repro_torch.models``:
-forward, prefill, decode) of the ten architectures, which runs plain
-PyTorch and launches none of the kernels. Phases:
+``--distributed``; the LM serving path (``repro_torch.models``:
+forward, prefill, decode) of the ten architectures; and the LM training
+path (``repro_torch.train``: the train step, the loop, resume, the
+CLI). Both LM paths run plain PyTorch and launch none of the kernels.
+Phases:
 
   1. environment: the card's name and power limit (nvidia-smi);
   2. build: every kernel source in src/repro_torch/csrc, one nvcc each,
@@ -90,6 +92,22 @@ PyTorch and launches none of the kernels. Phases:
      TFLOP/s (``model_flops``' 2·N·D, and the weight products the path
      does), granite's capacity drops per layer; the port's
      kernel launch counts set to 0 before and read after (none);
+  3c. LM training (TF32 off): (a) each of the ten reduced archs, one train
+     step (AdamW) in f32 from the same state made on the CPU, on the card
+     against the CPU: metrics, every gradient leaf, the new parameters,
+     m, v at the CPU tests' bar, step and every routing call's top-k
+     (the forward's and remat's recompute) bitwise; (b) granite-moe-1b-
+     a400m at full width, depth 2, f32, capacity_factor n_experts /
+     top_k, B = 1, 128 tokens, the same; (c) granite-moe-1b-a400m at full
+     width and depth (bf16 compute, remat "block", f32 AdamW), parameters
+     made on the card, token_batches at 4 × 2,048 tokens, train_loop for
+     2 warm-up and 10 timed steps: losses and grad norms finite, the last
+     loss below the first; step seconds, tokens/s, peak memory, host
+     syncs a step, a traced step's launches and device time by kernel
+     kind, model FLOP/s over 989 TFLOP/s (6·N_active·tokens); (d) reduced
+     granite, 6 steps against 3 + resume to 6 under deterministic
+     algorithms, every state leaf bitwise; (e) the train CLI as a
+     subprocess (exit 0, final loss); launch counts 0 before and after;
      minPts, where it is all noise, and iono3d at ε = 4.0, minPts = 16,
      where it clusters and hooks), every path:
      device="cpu" with the plain versions against the card with the
@@ -193,6 +211,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -359,6 +378,19 @@ LM_BF16_TOL = {"qwen3-8b": 0.4, "granite-moe-1b-a400m": 0.1,
                "hymba-1.5b": 0.75}
 LM_F32_TOL = 1e-3
 BF16_PEAK = 989e12     # dense bf16 FLOP/s of one H100 SXM at 700 W
+# phase 3c, LM training (repro_torch.train): (a) the ten reduced archs, one
+# step each at LM_TRAIN_REDUCED's B × S in f32, card against CPU; (b)
+# LM_TRAIN at full width, LM_TRAIN_WIDTH's depth, f32, nothing dropped,
+# card against CPU; (c) LM_TRAIN at full width and depth (bf16 compute,
+# remat "block"), token_batches at LM_TRAIN_FULL's B × S, its warm-up and
+# timed steps; (d) exact resume of reduced LM_TRAIN, deterministic
+# algorithms on; (e) the train CLI for LM_TRAIN_CLI_STEPS steps
+LM_TRAIN = "granite-moe-1b-a400m"
+LM_TRAIN_REDUCED = dict(B=2, S=64)
+LM_TRAIN_WIDTH = dict(B=1, S=128, layers=2)
+LM_TRAIN_FULL = dict(B=4, S=2_048, warm=2, timed=10)
+LM_TRAIN_RESUME = dict(B=2, S=32, steps=6, at=3)
+LM_TRAIN_CLI_STEPS = 20
 
 class SmokeFailure(Exception):
     pass
@@ -407,12 +439,16 @@ class Env:
                                          gathered_sweep, lbvh, morton, ops,
                                          pairwise_sweep, ref)
         from repro_torch import configs as lmc
+        from repro_torch.data import pipeline
+        from repro_torch.distributed import checkpoint as ckpt
         from repro_torch.launch import cluster
         from repro_torch.models import model as lm
         from repro_torch.models import moe as lm_moe
         from repro_torch.models import ssm as lm_ssm
         from repro_torch.models import transformer as lm_tf
         from repro_torch.serve import snapshot
+        from repro_torch.train import optimizer as opt
+        from repro_torch.train import trainer
         self.torch, self.repro_torch = torch, repro_torch
         self.dd, self.comm, self.cluster = dbscan_dist, comm, cluster
         self.build, self.ops, self.ref = build, ops, ref
@@ -424,6 +460,8 @@ class Env:
         self.grid = grid
         self.lmc, self.lm, self.lm_moe, self.lm_tf = lmc, lm, lm_moe, lm_tf
         self.lm_ssm = lm_ssm
+        self.opt, self.trainer = opt, trainer
+        self.pipeline, self.ckpt = pipeline, ckpt
         self.bvhk, self.morton, self.lbvh = bvh_sweep, morton, lbvh
         self.modules = (csr_sweep, frontier_sweep, pairwise_sweep,
                         gathered_sweep, cross_sweep, morton, bvh_sweep, lbvh)
@@ -3906,6 +3944,323 @@ def phase_lm(E, smi):
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 3c: LM training
+
+
+def lm_to(E, tree, dev):
+    leaves, rebuild = E.ckpt.tree_flatten(tree)
+    return rebuild([x.detach().to(dev, copy=True) for x in leaves])
+
+
+def lm_train_outputs(E, cfg, state, batch):
+    """One train step (AdamW at lr 1e-3) of ``state`` on ``batch``:
+    [(what, output on the CPU)] — the metrics, every gradient leaf as the
+    step hands it to ``optimizer.apply``, the new parameters, ``m``, ``v``
+    and ``step`` — and the routing calls of the step (the forward's and,
+    under remat, the backward pass's recompute)."""
+    step = E.trainer.make_train_step(cfg, E.opt.AdamWConfig(lr=1e-3))
+    with CallRecorder(E.opt, "apply") as app, RouteRecorder(E) as route:
+        new, metrics = step(state, batch)
+    outs = [(k, v) for k, v in metrics.items()]
+    trees = [("grad", app.calls[0][0][2]), ("param", new.params),
+             ("m", new.opt.m), ("v", new.opt.v)]
+    for what, tree in trees:
+        outs += [(f"{what} {'/'.join(path)}", x)
+                 for path, x in E.lm_tf.tree_leaves(tree)]
+    outs.append(("step", new.opt.step))
+    return [(k, v.detach().cpu()) for k, v in outs], \
+        [(e.cpu(), p.detach().cpu()) for e, p in route.out]
+
+
+def lm_train_compare(E, name, cfg, state, batch):
+    """The step of ``lm_train_outputs`` on the CPU and on the card from
+    the same state and batch (made on the CPU, copied): every output at
+    the CPU tests' bar, integers and routing bitwise. Returns (worst share
+    of the bar, card step seconds)."""
+    t = E.torch
+    g_state, g_batch = lm_to(E, state, E.dev), lm_to(E, batch, E.dev)
+    c_out, c_route = lm_train_outputs(E, cfg, state, batch)
+    t.cuda.synchronize()
+    t0 = time.perf_counter()
+    g_out, g_route = lm_train_outputs(E, cfg, g_state, g_batch)
+    wall = time.perf_counter() - t0
+    check([k for k, _ in g_out] == [k for k, _ in c_out],
+          f"{name}: train outputs differ in kind")
+    worst = max(lm_check_close(E, f"{name} {k}", g, c)
+                for (k, g), (_, c) in zip(g_out, c_out))
+    passes = 2 if cfg.remat == "block" else 1
+    check(len(c_route) == (passes * cfg.n_layers if cfg.is_moe else 0),
+          f"{name}: {len(c_route)} routing calls in a train step")
+    lm_check_routing(E, name, g_route, c_route)
+    return worst, wall, len(g_out), len(g_route)
+
+
+def lm_train_state(E, cfg, device):
+    params = E.lm.init_params(cfg, LM_SEED, device=device)
+    return E.trainer.TrainState(params, E.opt.init(params))
+
+
+def lm_train_reduced_arch(E, name) -> float:
+    """Part (a) for one reduced arch (``tests/test_torch_train_card.py``
+    runs it too): one train step in f32 (TF32 off), the state made on the
+    CPU and copied, on the card against the CPU. Returns the worst
+    output's share of the bar."""
+    cpu = E.torch.device("cpu")
+    cfg = E.lmc.ALL[name].reduced()
+    B, S = LM_TRAIN_REDUCED["B"], LM_TRAIN_REDUCED["S"]
+    worst, wall, n, routes = lm_train_compare(
+        E, name, cfg, lm_train_state(E, cfg, cpu),
+        E.lm.synth_batch(cfg, B, S, LM_SEED + 1, device=cpu))
+    log(f"  {name} (reduced): train step, {n} outputs (metrics, gradients, "
+        f"parameters, m, v, step) equal the CPU's (worst {worst:.3f} of the "
+        f"bar), {routes} routing calls equal; card step {wall:.2f} s")
+    return worst
+
+
+def lm_train_width_check(E):
+    """Part (b): LM_TRAIN at full width, depth LM_TRAIN_WIDTH["layers"],
+    f32, capacity_factor n_experts / top_k (nothing drops): one train
+    step on the card against the CPU."""
+    t = E.torch
+    base = E.lmc.ALL[LM_TRAIN]
+    cfg = dataclasses.replace(base, n_layers=LM_TRAIN_WIDTH["layers"],
+                              dtype="float32", capacity_factor=base.n_experts
+                              / base.top_k)
+    cpu = t.device("cpu")
+    t0 = time.perf_counter()
+    worst, wall, n, routes = lm_train_compare(
+        E, f"{LM_TRAIN} depth {cfg.n_layers}", cfg,
+        lm_train_state(E, cfg, cpu),
+        E.lm.synth_batch(cfg, LM_TRAIN_WIDTH["B"], LM_TRAIN_WIDTH["S"],
+                         LM_SEED + 1, device=cpu))
+    log(f"  {LM_TRAIN} at full width, depth {cfg.n_layers}, f32, B = "
+        f"{LM_TRAIN_WIDTH['B']}, S = {LM_TRAIN_WIDTH['S']}, capacity_factor "
+        f"{cfg.capacity_factor:g}: train step, {n} outputs equal the CPU's "
+        f"(worst {worst:.3f} of the bar), {routes} routing calls equal; "
+        f"{time.perf_counter() - t0:.1f} s with the CPU's step")
+    gc.collect()
+    t.cuda.empty_cache()
+    return worst
+
+
+def lm_train_full(E, smi):
+    """Part (c): LM_TRAIN as configured, parameters made on the card, f32
+    AdamW state, token_batches at LM_TRAIN_FULL, ``train_loop`` for its
+    warm-up and timed steps; then one more step with the sync debug mode
+    on and two (a warm-up and a traced one) under torch.profiler."""
+    t = E.torch
+    cfg = E.lmc.ALL[LM_TRAIN]
+    B, S, warm, timed = (LM_TRAIN_FULL[k]
+                         for k in ("B", "S", "warm", "timed"))
+    gc.collect()
+    t.cuda.empty_cache()
+    t.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = lm_train_state(E, cfg, E.dev)
+    t.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(x.numel() for x in E.ckpt.tree_flatten(state.params)[0])
+    batches = E.pipeline.token_batches(cfg, B, S, seed=LM_SEED, device=E.dev)
+    ocfg = E.opt.AdamWConfig(lr=3e-4, warmup_steps=2,
+                             total_steps=warm + timed)
+    state, hist = E.trainer.train_loop(
+        cfg, E.trainer.TrainerConfig(total_steps=warm + timed, log_every=1),
+        ocfg, batches, state=state, log=lambda m: log("    " + m),
+        device=E.dev)
+    peak = t.cuda.max_memory_allocated() / 2 ** 30
+    losses = [h["loss"] for h in hist]
+    norms = [h["grad_norm"] for h in hist]
+    check(all(np.isfinite(losses)) and all(np.isfinite(norms)),
+          f"{LM_TRAIN}: a loss or grad_norm is not finite: {losses} {norms}")
+    check(losses[-1] < losses[0],
+          f"{LM_TRAIN}: the loss did not fall ({losses[0]} -> {losses[-1]})")
+    step_fn = E.trainer.make_train_step(cfg, ocfg)
+
+    def one():
+        nonlocal state
+        state, metrics = step_fn(state, next(batches))
+        t.stack(list(metrics.values())).tolist()   # the loop's one read
+    syncs = lm_host_syncs(E, one)
+    trace_s, rows = profile_device(E, one)
+    del state, step_fn
+    gc.collect()
+    t.cuda.empty_cache()
+    dts = [h["dt"] for h in hist[warm:]]
+    med = statistics.median(dts)
+    tokens = B * S
+    flops = 6.0 * cfg.active_param_count() * tokens
+    v = dict(params=n_params, active_params=cfg.active_param_count(),
+             init_s=init_s, step_s=med, step_s_min=min(dts),
+             step_s_max=max(dts), tokens_s=tokens / med, peak_gib=peak,
+             mfu=flops / med / BF16_PEAK, host_syncs=syncs,
+             traced_step_s=trace_s,
+             traced_busy_ms=sum(r[1] for r in rows),
+             traced_launches=sum(r[2] for r in rows),
+             first_loss=losses[0], last_loss=losses[-1],
+             losses=losses, grad_norms=norms,
+             warm_step_s=[h["dt"] for h in hist[:warm]])
+    log(f"  {LM_TRAIN} (full width and depth: {cfg.n_layers} layers, "
+        f"{n_params / 1e9:.3f}B parameters f32, {v['active_params'] / 1e9:.3f}"
+        f"B active, bf16 compute, remat {cfg.remat}; {smi}): B = {B}, S = "
+        f"{S} ({tokens} tokens a step), AdamW f32")
+    log(f"    step {med:.3f} s (median of {timed}; min {min(dts):.3f}, max "
+        f"{max(dts):.3f}; warm-up {v['warm_step_s']}), {v['tokens_s']:.0f} "
+        f"tokens/s, model FLOP/s {v['mfu']:.2%} of "
+        f"{BF16_PEAK / 1e12:.0f} TFLOP/s (6·N_active·tokens, N_active "
+        f"from active_param_count(); remat's extra forward not counted); "
+        f"peak {peak:.2f} GiB; {syncs} host syncs a step; loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}; init {init_s:.2f} s")
+    if rows:
+        v["traced_split_ms"] = lm_train_split(rows)
+        top = [(name[:90], ms, n) for name, ms, n in rows[:8]]
+        log(f"    one step traced (torch.profiler): host {trace_s:.3f} s, "
+            f"device busy {v['traced_busy_ms']:.1f} ms in "
+            f"{v['traced_launches']} kernels; by kind (ms, launches): "
+            f"{json.dumps(v['traced_split_ms'])}; largest (name, ms, "
+            f"launches): {json.dumps(top)}")
+    else:
+        log("    one step traced: no device time in the trace (not measured)")
+    return v
+
+
+# kinds of a train step's device kernels, by name: the matrix products
+# (cuBLAS: gemm / nvjet / xmma / cutlass), those of them in f32 (TF32 off:
+# attention's scores and the unembedding), copies and casts, reductions,
+# and every other elementwise kernel
+LM_TRAIN_KINDS = (("f32 products", lambda n: any(
+                      k in n for k in ("gemm", "nvjet", "xmma", "cutlass"))
+                   and any(k in n for k in ("f32f32_f32f32", "sgemm", "ffma",
+                                            "_sss"))),
+                  ("other products", lambda n: any(
+                      k in n for k in ("gemm", "nvjet", "xmma", "cutlass"))),
+                  ("copies and casts", lambda n: "copy" in n),
+                  ("reductions", lambda n: "reduce" in n),
+                  ("other", lambda n: True))
+
+
+def lm_train_split(rows) -> dict:
+    """A traced step's device ms and launches by LM_TRAIN_KINDS (the first
+    kind a kernel's name matches)."""
+    out = {k: [0.0, 0] for k, _ in LM_TRAIN_KINDS}
+    for name, ms, n in rows:
+        kind = next(k for k, match in LM_TRAIN_KINDS if match(name))
+        out[kind][0] += ms
+        out[kind][1] += n
+    return out
+
+
+def lm_train_resume(E):
+    """Part (d): reduced LM_TRAIN, LM_TRAIN_RESUME's steps uninterrupted
+    against ``at`` steps with a checkpoint and a fresh ``train_loop``
+    resumed to the end (token_batches from the resumed step), with
+    deterministic algorithms on: parameters, m, v and step bitwise. An op
+    without a deterministic CUDA implementation is named, and the two runs
+    are then held at the f32 bar."""
+    t = E.torch
+    cfg = E.lmc.ALL[LM_TRAIN].reduced()
+    B, S, steps, at = (LM_TRAIN_RESUME[k] for k in ("B", "S", "steps", "at"))
+
+    def run(total, ckpt_dir=None, start=0):
+        return E.trainer.train_loop(
+            cfg, E.trainer.TrainerConfig(total_steps=total, ckpt_dir=ckpt_dir,
+                                         ckpt_every=at, log_every=10_000),
+            E.opt.AdamWConfig(lr=1e-3),
+            E.pipeline.token_batches(cfg, B, S, seed=LM_SEED,
+                                     start_step=start, device=E.dev),
+            seed=LM_SEED, log=lambda m: None, device=E.dev)
+
+    def both():
+        full, _ = run(steps)
+        with tempfile.TemporaryDirectory() as d:
+            run(at, d)
+            resumed, hist = run(steps, d, start=at)
+        check(hist[0]["step"] == at + 1, f"resumed at {hist[0]['step']}")
+        return [x.detach() for x in E.ckpt.tree_flatten(full)[0]], \
+            [x.detach() for x in E.ckpt.tree_flatten(resumed)[0]]
+
+    blocked = None
+    t.use_deterministic_algorithms(True)
+    try:
+        a, b = both()
+    except RuntimeError as e:
+        if "deterministic" not in str(e):
+            raise
+        blocked = str(e).splitlines()[0]
+    finally:
+        t.use_deterministic_algorithms(False)
+    if blocked is None:
+        same_all = all(x.dtype == y.dtype and t.equal(x, y)
+                       for x, y in zip(a, b))
+        check(same_all, f"{LM_TRAIN}: resumed state differs from the "
+              "uninterrupted run under deterministic algorithms")
+        log(f"  {LM_TRAIN} (reduced): {steps} steps against {at} + resume "
+            f"to {steps}, deterministic algorithms on: {len(a)} leaves "
+            "(parameters, m, v, step) bitwise equal")
+        return {"bitwise": True, "leaves": len(a)}
+    log(f"  {LM_TRAIN} (reduced): no deterministic CUDA implementation: "
+        f"{blocked}; the two runs held at the f32 bar instead")
+    a, b = both()
+    worst = max(lm_check_close(E, f"resume leaf {i}", y.cpu(), x.cpu())
+                for i, (x, y) in enumerate(zip(a, b)))
+    log(f"    resumed state within the bar (worst {worst:.3f})")
+    return {"bitwise": False, "blocked_by": blocked, "worst": worst}
+
+
+def lm_train_cli(E):
+    """Part (e): the train CLI on the card as a subprocess."""
+    with tempfile.TemporaryDirectory() as d:
+        cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+               LM_TRAIN, "--reduced", "--steps", str(LM_TRAIN_CLI_STEPS),
+               "--ckpt-dir", d]
+        t0 = time.perf_counter()
+        r = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                           cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(SRC)))
+        wall = time.perf_counter() - t0
+    line = [x for x in r.stdout.splitlines() if x.startswith("final loss:")]
+    check(r.returncode == 0 and line,
+          f"train CLI exit {r.returncode}: {r.stderr[-2000:]}")
+    loss = float(line[-1].split()[2])
+    check(np.isfinite(loss), f"train CLI: final loss {loss}")
+    log(f"  train CLI: {' '.join(cmd[1:4])} ... --steps "
+        f"{LM_TRAIN_CLI_STEPS}: exit 0, '{line[-1]}' ({wall:.1f} s)")
+    return {"final_loss": loss, "seconds": wall}
+
+
+def phase_lm_train(E, smi):
+    """The LM training path: (a) ten reduced archs, a step card against
+    CPU; (b) the width check; (c) LM_TRAIN at full width and depth; (d)
+    exact resume; (e) the CLI. TF32 off throughout; the port's DBSCAN
+    kernels launch no time."""
+    t = E.torch
+    old = (t.backends.cuda.matmul.allow_tf32, t.backends.cudnn.allow_tf32)
+    t.backends.cuda.matmul.allow_tf32 = False
+    t.backends.cudnn.allow_tf32 = False
+    # part (d) runs cuBLAS under torch.use_deterministic_algorithms, which
+    # asks for this setting; set before the phase's first cuBLAS call
+    old_ws = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    try:
+        E.reset_launches()
+        out = dict(reduced={name: lm_train_reduced_arch(E, name)
+                            for name in sorted(E.lmc.ALL)})
+        out["width"] = lm_train_width_check(E)
+        out["full"] = lm_train_full(E, smi)
+        out["resume"] = lm_train_resume(E)
+        out["cli"] = lm_train_cli(E)
+        launched = {k: v for k, v in E.launches().items() if v}
+        check(not launched,
+              f"the LM training path launched DBSCAN kernels {launched}")
+        log("  launches of the port's kernels on the LM training path: none")
+    finally:
+        t.backends.cuda.matmul.allow_tf32, t.backends.cudnn.allow_tf32 = old
+        if old_ws is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG")
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = old_ws
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -3949,6 +4304,7 @@ def main() -> int:
     timed("kernel parity", phase_parity, E)
     timed("LBVH build parity", phase_lbvh, E)
     lm_out = timed("LM serving", phase_lm, E, smi)
+    lm_train_out = timed("LM training", phase_lm_train, E, smi)
     timed("whole path, reduced size", phase_reduced, E)
     runs = timed("whole path, full size", phase_full, E)
     timed("distributed", phase_distributed, E, runs)
@@ -3958,6 +4314,7 @@ def main() -> int:
     log("phases s: " + ", ".join(f"{k} {v:.1f}" for k, v in phases.items())
         + f"; total {time.perf_counter() - t_start:.1f}")
     log("LM serving: " + json.dumps(lm_out))
+    log("LM training: " + json.dumps(lm_train_out))
     log(smi)
     print(json.dumps(kernels_line(per)))
     print(json.dumps({"ok": True, "device": {

@@ -13,9 +13,11 @@ The on-disk format is the JAX reference's (``repro.distributed.
 checkpoint``), so checkpoints written by either package load in the other:
 both read leaves by index and neither parses the ``treedef`` string (this
 module writes its own description there). A tree is flattened the way
-``jax.tree`` flattens the structures the serving tier saves: a leaf is a
-tensor, array or scalar; dicts go in sorted key order, lists and tuples in
-order (a tuple restores as a plain tuple), and an object with
+``jax.tree`` flattens the structures the serving tier and the trainer
+save: a leaf is a tensor, array or scalar (a ``models.sharding.Sharded``
+is saved whole); dicts go in sorted key order, lists and tuples in
+order (a NamedTuple restores as its own type, any other tuple as a plain
+tuple), and an object with
 ``tree_flatten()`` / ``tree_unflatten(aux, children)``
 (``serve.ClusterSnapshot``) by those.
 """
@@ -30,6 +32,8 @@ from typing import Any, Callable, Optional, Tuple
 import numpy as np
 import torch
 
+from ..models.sharding import Sharded, place
+
 
 def _flatten(tree) -> Tuple[list, Callable[[list], Any], str]:
     """(leaves, rebuild from a list of leaves, description)."""
@@ -41,27 +45,47 @@ def _flatten(tree) -> Tuple[list, Callable[[list], Any], str]:
                 f"{type(tree).__name__}{desc}")
     if isinstance(tree, dict):
         keys = sorted(tree)
-        leaves, rebuild, _ = _flatten([tree[k] for k in keys])
-        return (leaves, lambda xs: dict(zip(keys, rebuild(xs))),
-                "{" + ", ".join(f"{k!r}: {_flatten(tree[k])[2]}"
-                                for k in keys) + "}")
+        parts = [_flatten(tree[k]) for k in keys]
+        return _join(parts, lambda out: dict(zip(keys, out)),
+                     "{" + ", ".join(f"{k!r}: {p[2]}"
+                                     for k, p in zip(keys, parts)) + "}")
     if isinstance(tree, (list, tuple)):
         parts = [_flatten(x) for x in tree]
-        sizes = [len(p[0]) for p in parts]
-
-        def rebuild(xs):
-            out, i = [], 0
-            for (_, rb, _), k in zip(parts, sizes):
-                out.append(rb(xs[i:i + k]))
-                i += k
-            return out if isinstance(tree, list) else tuple(out)
-
-        return ([x for p in parts for x in p[0]], rebuild,
-                "(" + ", ".join(p[2] for p in parts) + ")")
+        desc = "(" + ", ".join(p[2] for p in parts) + ")"
+        if isinstance(tree, list):
+            return _join(parts, list, desc)
+        if hasattr(tree, "_fields"):     # a NamedTuple keeps its type
+            return _join(parts, lambda out: type(tree)(*out),
+                         type(tree).__name__ + desc)
+        return _join(parts, tuple, desc)
     return [tree], lambda xs: xs[0], "*"
 
 
+def _join(parts, make, desc):
+    """The leaves of ``parts`` in order, and a rebuild that hands each
+    part its own run of leaves and ``make`` the rebuilt parts."""
+    sizes = [len(p[0]) for p in parts]
+
+    def rebuild(xs):
+        out, i = [], 0
+        for (_, rb, _), k in zip(parts, sizes):
+            out.append(rb(xs[i:i + k]))
+            i += k
+        return make(out)
+
+    return [x for p in parts for x in p[0]], rebuild, desc
+
+
+def tree_flatten(tree) -> Tuple[list, Callable[[list], Any]]:
+    """(leaves in the checkpoint's order, rebuild from a list of leaves):
+    the order ``jax.tree.flatten`` gives the same structure."""
+    leaves, rebuild, _ = _flatten(tree)
+    return leaves, rebuild
+
+
 def _to_numpy(x) -> np.ndarray:
+    if isinstance(x, Sharded):
+        x = x.full()
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy()
     return np.asarray(x)
@@ -157,10 +181,15 @@ def latest_step(ckpt_dir: str, *,
 
 
 def restore(ckpt_dir: str, tree_like, *, step: Optional[int] = None,
-            namespace: Optional[str] = None):
+            shardings=None, namespace: Optional[str] = None):
     """Restore into the structure of ``tree_like``: its leaves are
     replaced, in flattening order, by the saved numpy arrays ``leaf_0`` …
-    Returns ``(tree, meta)`` with ``meta`` the whole ``meta.json``."""
+    Returns ``(tree, meta)`` with ``meta`` the whole ``meta.json``.
+
+    ``shardings`` (a tree of ``models.sharding.NamedSharding``, one a
+    leaf, in the same order) places each leaf on a mesh: it comes back as
+    a ``models.sharding.Sharded``, its blocks on the mesh's devices. This
+    is where elastic resharding onto a new mesh happens."""
     ckpt_dir = namespace_dir(ckpt_dir, namespace)
     if step is None:
         step = latest_step(ckpt_dir)
@@ -170,6 +199,12 @@ def restore(ckpt_dir: str, tree_like, *, step: Optional[int] = None,
     leaves_like, rebuild, _ = _flatten(tree_like)
     with np.load(os.path.join(path, "arrays.npz")) as z:
         leaves = [z[f"leaf_{i}"] for i in range(len(leaves_like))]
+    if shardings is not None:
+        sh_leaves = tree_flatten(shardings)[0]
+        if len(sh_leaves) != len(leaves):
+            raise ValueError(f"{len(sh_leaves)} shardings for "
+                             f"{len(leaves)} leaves")
+        leaves = [place(x, s) for x, s in zip(leaves, sh_leaves)]
     with open(os.path.join(path, "meta.json")) as f:
         meta = json.load(f)
     return rebuild(leaves), meta

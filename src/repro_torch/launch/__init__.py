@@ -1,1 +1,2 @@
-"""Launchers of the port: the clustering driver CLI (``cluster``)."""
+"""Launchers of the port: the clustering driver CLI (``cluster``), the
+training driver CLI (``train``) and device meshes (``mesh``)."""

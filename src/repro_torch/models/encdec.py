@@ -17,8 +17,8 @@ from ..configs.base import ArchConfig
 from ..core.engines import resolve_device
 from . import layers as ll
 from .transformer import (PD, _attn_defs, _ffn_defs, _head, _norm_defs,
-                          _out_norm, cache_slot, layer, ring_cache_from_kv,
-                          stack_defs, write_slot)
+                          _out_norm, cache_slot, layer, remat,
+                          ring_cache_from_kv, stack_defs, write_slot)
 
 
 def enc_seq_len(seq_len: int) -> int:
@@ -100,11 +100,14 @@ def encode(cfg: ArchConfig, params, frames):
     dtype = ll.dtype_of(cfg.dtype)
     x = frames.to(dtype) @ params["adapter"].to(dtype)
     x = x + _sinusoid(x.shape[1], cfg.d_model, dtype, x.device)
+
+    def body(p_l, xx):
+        h = _norm(cfg, p_l, "ln1", xx)
+        xx = xx + _attn(cfg, p_l["attn"], h, h, causal=False)
+        return xx + ll.mlp(_norm(cfg, p_l, "ln2", xx), p_l["ffn"], cfg.act)
+
     for i in range(cfg.n_layers):
-        p_l = layer(params["enc_blocks"], i)
-        h = _norm(cfg, p_l, "ln1", x)
-        x = x + _attn(cfg, p_l["attn"], h, h, causal=False)
-        x = x + ll.mlp(_norm(cfg, p_l, "ln2", x), p_l["ffn"], cfg.act)
+        x = remat(cfg, body, layer(params["enc_blocks"], i), x)
     return _out_norm(cfg, params, x, prefix="enc_out_")
 
 
@@ -118,13 +121,16 @@ def forward(cfg: ArchConfig, params, batch):
     dtype = ll.dtype_of(cfg.dtype)
     enc = encode(cfg, params, batch["frames"])
     x = _embed_tokens(cfg, params, batch["tokens"], dtype)
+
+    def body(p_l, xx):
+        h = _norm(cfg, p_l, "ln1", xx)
+        xx = xx + _attn(cfg, p_l["attn"], h, h, causal=True)
+        xx = xx + _attn(cfg, p_l["xattn"], _norm(cfg, p_l, "lnx", xx), enc,
+                        causal=False)
+        return xx + ll.mlp(_norm(cfg, p_l, "ln2", xx), p_l["ffn"], cfg.act)
+
     for i in range(cfg.n_layers):
-        p_l = layer(params["dec_blocks"], i)
-        h = _norm(cfg, p_l, "ln1", x)
-        x = x + _attn(cfg, p_l["attn"], h, h, causal=True)
-        x = x + _attn(cfg, p_l["xattn"], _norm(cfg, p_l, "lnx", x), enc,
-                      causal=False)
-        x = x + ll.mlp(_norm(cfg, p_l, "ln2", x), p_l["ffn"], cfg.act)
+        x = remat(cfg, body, layer(params["dec_blocks"], i), x)
     x = _out_norm(cfg, params, x)
     return ll.unembed(x, _head(cfg, params)), None, \
         torch.zeros((), dtype=torch.float32, device=x.device)

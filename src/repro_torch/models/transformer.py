@@ -17,6 +17,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from ..configs.base import ArchConfig
 from ..core.engines import resolve_device
@@ -440,6 +441,22 @@ def embed_inputs(cfg, params, batch, dtype):
     return x
 
 
+def remat(cfg: ArchConfig, body, p_l, x):
+    """``body(p_l, x)`` for one block. With ``cfg.remat == "block"``, while
+    autograd records it (grad mode on and ``x`` or a parameter of the
+    block requiring grad), the block runs under activation checkpointing:
+    the backward pass recomputes it from its inputs and keeps nothing of
+    its inside (the reference's ``jax.checkpoint(..., nothing_saveable)``).
+    A block draws no random numbers, so no RNG state is kept. Serving,
+    where nothing requires grad, runs the block as it is."""
+    if cfg.remat == "block" and torch.is_grad_enabled() and (
+            x.requires_grad
+            or any(t.requires_grad for _, t in tree_leaves(p_l))):
+        return torch.utils.checkpoint.checkpoint(
+            body, p_l, x, use_reentrant=False, preserve_rng_state=False)
+    return body(p_l, x)
+
+
 def forward(cfg: ArchConfig, params, batch):
     """Full-sequence forward. Returns (logits, None, aux): caches are built
     by ``prefill``."""
@@ -453,9 +470,13 @@ def forward(cfg: ArchConfig, params, batch):
         x, _ = xlstm_apply(cfg, params, x)
         aux = torch.zeros((), dtype=_F32, device=x.device)
     else:
+        def body(p_l, xx):
+            xx, _, aux_l = block_apply(cfg, p_l, xx, pos)
+            return xx, aux_l
+
         auxs = []
         for i in range(cfg.n_layers):
-            x, _, aux_l = block_apply(cfg, layer(params["blocks"], i), x, pos)
+            x, aux_l = remat(cfg, body, layer(params["blocks"], i), x)
             auxs.append(aux_l)
         aux = torch.stack(auxs).sum()
     x = _out_norm(cfg, params, x)

@@ -33,7 +33,9 @@ MODULES = ["repro_torch", "repro_torch.baselines",
            "repro_torch.data.synth",
            "repro_torch.distributed", "repro_torch.distributed.checkpoint",
            "repro_torch.distributed.comm",
+           "repro_torch.distributed.collectives",
            "repro_torch.distributed.dbscan_dist",
+           "repro_torch.distributed.elastic",
            "repro_torch.kernels", "repro_torch.kernels.build",
            "repro_torch.kernels.bvh_sweep",
            "repro_torch.kernels.cross_sweep",
@@ -43,16 +45,19 @@ MODULES = ["repro_torch", "repro_torch.baselines",
            "repro_torch.kernels.morton", "repro_torch.kernels.ops",
            "repro_torch.kernels.pairwise_sweep", "repro_torch.kernels.ref",
            "repro_torch.launch", "repro_torch.launch.cluster",
+           "repro_torch.launch.mesh", "repro_torch.launch.train",
            "repro_torch.models", "repro_torch.models.encdec",
            "repro_torch.models.layers", "repro_torch.models.model",
-           "repro_torch.models.moe", "repro_torch.models.ssm",
+           "repro_torch.models.moe", "repro_torch.models.sharding",
+           "repro_torch.models.ssm",
            "repro_torch.models.transformer", "repro_torch.models.xlstm",
            "repro_torch.serve", "repro_torch.serve.assign",
            "repro_torch.serve.faults", "repro_torch.serve.health",
            "repro_torch.serve.ingest", "repro_torch.serve.resilience",
            "repro_torch.serve.router", "repro_torch.serve.scheduler",
            "repro_torch.serve.shard", "repro_torch.serve.snapshot",
-           "repro_torch.serve.wal"]
+           "repro_torch.serve.wal", "repro_torch.train",
+           "repro_torch.train.optimizer", "repro_torch.train.trainer"]
 
 
 def test_import_loads_no_jax_and_no_repro():
@@ -113,6 +118,10 @@ def test_import_loads_no_jax_and_no_repro():
         "    lm(b)\n"
         "    _, c = lm.prefill(b, 24)\n"
         "    lm.decode_step(c, b['tokens'][:, :1], 16)\n"
+        "from repro_torch.launch import train\n"
+        "train.main(['--arch', 'granite-moe-1b-a400m', '--reduced',"
+        " '--steps', '2', '--batch', '2', '--seq', '16', '--device', 'cpu',"
+        " '--ckpt-dir', d + '/train'])\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or"
         " m.startswith(('jax.', 'jaxlib', 'repro.')) or m == 'repro')\n"
         "print('BAD', bad)\n")
