@@ -17,9 +17,11 @@ ingest, compaction, partial gathers, recovery and hedged legs); the
 paper's fig. 4 systems (DClust, grid, FDBSCAN, G-DBSCAN, brute); and the
 distributed driver on thread ranks of the card and through the CLI's
 ``--distributed``; the LM serving path (``repro_torch.models``:
-forward, prefill, decode) of the ten architectures; and the LM training
+forward, prefill, decode) of the ten architectures; the LM training
 path (``repro_torch.train``: the train step, the loop, resume, the
-CLI). Both LM paths run plain PyTorch and launch none of the kernels.
+CLI); and the dry run (``repro_torch.launch.dryrun``: meta traces of
+the LM cells, the paper's distributed cells). The LM paths run plain
+PyTorch and launch none of the kernels.
 Phases:
 
   1. environment: the card's name and power limit (nvidia-smi);
@@ -198,7 +200,28 @@ Phases:
      it. Rows 6, 7 and 8 of the kernels line (lbvh_keys, bvh_level,
      hash_sweep) carry those A-side numbers under ``previous``. A
      kernel's ``launches`` sum every counted path run of phases 5, 5b and
-     5c (the tier, fig. 4 and the distributed runs included).
+     5c (the tier, fig. 4 and the distributed runs included);
+  7. the dry run (``repro_torch.launch.dryrun``): (a) every arch at
+     decode_32k (and long_500k where it applies) and train_4k (but
+     hymba-1.5b and xlstm-1.3b, whose traces step their scans in Python)
+     on the single production mesh (16×16 meta placeholders), one meta
+     trace a cell under ``op_costs``, each ``ok``,
+     with its trace seconds, FLOPs, bytes, bottleneck, useful_flops_ratio
+     and argument bytes a device; (b) the LM phases' own shapes traced on
+     meta (qwen3-8b's prefill of 4 × 2,048, granite-moe-1b-a400m's train
+     step at 4 × 2,048), their executed product FLOPs (by operand dtype)
+     beside the seconds phases 3b and 3c measured; the traces launch no
+     kernel; (c) the paper's distributed cells (cluster_64m on both
+     meshes, cluster_1b on the multi-pod mesh; cluster_1b on the single
+     mesh skipped, MAX_POINTS) on 4 thread ranks of the card at one
+     production device's share, each answer equal to single-rank dbscan's
+     on the card, with regrows, step seconds, bytes a rank, the ring
+     model's collective term, peak memory, clusters and noise; at the
+     paper's ε every point is noise, so cluster_64m on the single mesh
+     runs again at the ε where a point has minPts expected neighbours
+     (``dryrun.clustering_eps``), where it must find core points and
+     clusters, equal to single-rank dbscan's; their kernel launches on a
+     line of their own (not in the kernels line).
 
 Before the last line it prints one ``{"kernels": [...]}`` JSON line; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -441,7 +464,7 @@ class Env:
         from repro_torch import configs as lmc
         from repro_torch.data import pipeline
         from repro_torch.distributed import checkpoint as ckpt
-        from repro_torch.launch import cluster
+        from repro_torch.launch import cluster, dryrun, op_costs
         from repro_torch.models import model as lm
         from repro_torch.models import moe as lm_moe
         from repro_torch.models import ssm as lm_ssm
@@ -451,6 +474,7 @@ class Env:
         from repro_torch.train import trainer
         self.torch, self.repro_torch = torch, repro_torch
         self.dd, self.comm, self.cluster = dbscan_dist, comm, cluster
+        self.dryrun, self.op_costs = dryrun, op_costs
         self.build, self.ops, self.ref = build, ops, ref
         self.csr, self.frontier = csr_sweep, frontier_sweep
         self.pairwise, self.gathered = pairwise_sweep, gathered_sweep
@@ -4261,6 +4285,210 @@ def phase_lm_train(E, smi):
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 8: the dry run (launch/dryrun.py, op_costs.py, analysis.py)
+
+# every arch at decode_32k (and long_500k where it applies) and train_4k,
+# on DRY_MESH, but for the archs whose train_4k trace steps a scan in
+# Python (17 and 66 s of the whole matrix's 742 s on the card machine's
+# host; PERF.md §6)
+DRY_SHAPES = ("decode_32k", "long_500k", "train_4k")
+DRY_SLOW_TRAIN = ("hymba-1.5b", "xlstm-1.3b")
+DRY_MESH = "single"
+DRY_SERVE = "qwen3-8b"                     # traced at LM_SERVE's prefill
+DRY_GRANITE_PRODUCTS = 38.7e12             # PERF.md §6: the predicted products
+DRY_CLUSTER = ("cluster_64m", "single")    # the paper cell run again at an ε
+                                           # where its points cluster
+
+
+def dry_tflop(split) -> str:
+    return json.dumps({k: round(v / 1e12, 3) for k, v in split.items()})
+
+
+def dry_products(E, fn):
+    """FLOPs of the products ``fn`` runs, traced on meta (op_costs), split
+    by the dtype of their first operand: (OpCosts, {dtype: FLOPs})."""
+    split = {}
+
+    class ByDtype(E.op_costs.OpCosts):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            before = self.flops
+            out = super().__torch_dispatch__(func, types, args, kwargs)
+            if self.flops != before:
+                key = str(args[0].dtype).replace("torch.", "")
+                split[key] = split.get(key, 0.0) + self.flops - before
+            return out
+
+    with ByDtype() as c:
+        fn()
+    return c, split
+
+
+def dry_meta_state(E, cfg):
+    """A TrainState of meta tensors: parameters from ``param_shapes`` (an
+    ``init_params`` on meta would draw from a generator), f32 moments,
+    step 0."""
+    t = E.torch
+    params = E.lm.param_shapes(cfg)
+    zeros = E.lm_tf.tree_map(t.empty_like, params)
+    return E.trainer.TrainState(params, E.opt.OptState(
+        zeros, E.lm_tf.tree_map(t.empty_like, params),
+        t.empty((), dtype=t.int32, device="meta")))
+
+
+def dry_lm_shapes(E, lm_out, lm_train_out):
+    """Part (b): the LM serving and training phases' own shapes traced on
+    meta, the executed products beside the seconds those phases measured
+    on the card."""
+    out = {}
+    cfg = E.lmc.ALL[DRY_SERVE]
+    B, P, T = (LM_SERVE[k] for k in ("B", "prompt", "cache_len"))
+    batch = E.lm.input_specs(cfg, E.lmc.ShapeConfig(
+        "serve", "prefill", P, B))["batch"]
+    c, split = dry_products(E, lambda: E.lm.prefill(
+        cfg, E.lm.param_shapes(cfg), batch, cache_len=T))
+    sec = lm_out[DRY_SERVE]["prefill_s"]
+    out["prefill"] = dict(flops=c.flops, bytes=c.bytes, by_dtype=split,
+                          seconds=sec, flops_s=c.flops / sec,
+                          trace_s=c.seconds)
+    log(f"  {DRY_SERVE} prefill, {B} x {P} tokens (cache_len {T}, bf16 "
+        f"compute), traced on meta in {c.seconds:.2f} s ({c.ops} ops): "
+        f"{c.flops / 1e12:.3f} TFLOP of products ({dry_tflop(split)} "
+        f"TFLOP by operand dtype), {c.bytes / 1e9:.1f} GB of op traffic; "
+        f"the LM serving phase's prefill {sec:.3f} s on the card: "
+        f"{c.flops / sec / 1e12:.1f} TFLOP/s of executed products "
+        f"({c.flops / sec / BF16_PEAK:.2%} of {BF16_PEAK / 1e12:.0f})")
+    cfg = E.lmc.ALL[LM_TRAIN]
+    B, S = LM_TRAIN_FULL["B"], LM_TRAIN_FULL["S"]
+    batch = E.lm.input_specs(cfg, E.lmc.ShapeConfig(
+        "train", "train", S, B))["batch"]
+    step = E.trainer.make_train_step(cfg, E.opt.AdamWConfig())
+    c, split = dry_products(E, lambda: step(dry_meta_state(E, cfg), batch))
+    sec = lm_train_out["full"]["step_s"]
+    model = 6.0 * cfg.active_param_count() * B * S
+    out["train"] = dict(flops=c.flops, bytes=c.bytes, by_dtype=split,
+                        model_flops=model, seconds=sec,
+                        flops_s=c.flops / sec, trace_s=c.seconds,
+                        predicted_flops=DRY_GRANITE_PRODUCTS)
+    log(f"  {LM_TRAIN} train step, {B} x {S} tokens (bf16 compute, remat "
+        f"{cfg.remat}, f32 AdamW), traced on meta in {c.seconds:.2f} s "
+        f"({c.ops} ops): {c.flops / 1e12:.3f} TFLOP of products "
+        f"({dry_tflop(split)} TFLOP by operand dtype; predicted "
+        f"{DRY_GRANITE_PRODUCTS / 1e12:.1f}) for "
+        f"{model / 1e12:.3f} TFLOP of model FLOPs, {c.bytes / 1e9:.1f} GB "
+        f"of op traffic; the LM training phase's step {sec:.3f} s on the "
+        f"card: {c.flops / sec / 1e12:.1f} TFLOP/s of executed products "
+        f"({c.flops / sec / BF16_PEAK:.2%} of {BF16_PEAK / 1e12:.0f})")
+    return out
+
+
+def phase_dryrun(E, smi, lm_out, lm_train_out):
+    """The dry run: (a) every arch at DRY_SHAPES (long_500k where the arch
+    is sub-quadratic, train_4k but for DRY_SLOW_TRAIN) on the DRY_MESH
+    production mesh through ``dryrun.run_cell`` (one meta trace a cell),
+    each ``ok``;
+    (b) the LM phases' shapes traced (``dry_lm_shapes``); (c) the paper's
+    distributed cells on the card (``run_paper_cell``: 4 thread ranks of
+    one production device's share, answers equal to single-rank dbscan's;
+    cluster_1b on the single mesh skipped, its reason MAX_POINTS;
+    DRY_CLUSTER again at ``clustering_eps``, where its points cluster). The
+    meta traces launch no kernel; the paper cells' launches are logged on
+    a line of their own (they are not in the kernels line)."""
+    D = E.dryrun
+    out = {"cells": {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        E.reset_launches()
+        traces = {}
+        t0 = time.perf_counter()
+        for arch in sorted(E.lmc.ALL):
+            for shape in DRY_SHAPES:
+                if (shape == "long_500k"
+                        and not E.lmc.ALL[arch].sub_quadratic) or (
+                        shape == "train_4k" and arch in DRY_SLOW_TRAIN):
+                    continue
+                rec = D.run_cell(arch, shape, DRY_MESH, tmp, traces=traces)
+                check(rec["status"] == "ok",
+                      f"dry run {arch} x {shape}: {rec['status']} "
+                      f"{rec.get('error', rec.get('reason', ''))}")
+                mem, tr = rec["memory"], rec["trace"]
+                out["cells"][f"{arch}:{shape}"] = dict(
+                    trace_s=tr["seconds"], ops=tr["ops"],
+                    flops=rec["flops_total"], bytes=rec["bytes_total"],
+                    bottleneck=rec["bottleneck"],
+                    useful_flops_ratio=rec["useful_flops_ratio"],
+                    argument_gib=mem["argument_bytes"] / 2 ** 30)
+                log(f"  {arch} x {shape} x {DRY_MESH}: traced in "
+                    f"{tr['seconds']:.2f} s ({tr['ops']} ops, "
+                    f"{tr['memo_hits']} memo hits); {rec['flops_total']:.4g} "
+                    f"FLOP, {rec['bytes_total']:.4g} bytes; bottleneck "
+                    f"{rec['bottleneck']}, useful_flops_ratio "
+                    f"{rec['useful_flops_ratio']:.4f}, arguments "
+                    f"{mem['argument_bytes'] / 2 ** 30:.3f} GiB a device")
+        out["cells_s"] = time.perf_counter() - t0
+        out["lm"] = dry_lm_shapes(E, lm_out, lm_train_out)
+        launched = {k: v for k, v in E.launches().items() if v}
+        check(not launched, f"a meta trace launched kernels {launched}")
+        out["traces_s"] = time.perf_counter() - t0
+        E.reset_launches()
+
+        def paper(shape, mk, out_dir, eps=None):
+            rec = D.run_paper_cell(shape, mk, out_dir, force=True,
+                                   device=E.dev, eps=eps)
+            what = f"rt-dbscan x {shape} x {mk}"
+            check(rec["status"] == "ok" and rec["matches_single"],
+                  f"{what}, eps {rec['eps']}: {rec['status']} "
+                  f"{rec.get('error', '')}")
+            log(f"  {what} ({smi}): {rec['ranks']} thread ranks x "
+                f"{rec['points_per_rank']:,} points ({rec['points_run']:,}"
+                f"), eps {rec['eps']}, minPts {rec['min_pts']}: wall "
+                f"{rec['wall_s']:.3f} s, regrows {rec['regrows']}, "
+                f"rounds {rec['local_rounds']} / {rec['label_rounds']}, "
+                f"steps s {json.dumps(rec['steps_s'])}, "
+                f"bytes a rank {json.dumps(rec['sent_per_rank'])}, "
+                f"collective term {rec['collective_s'] * 1e3:.4f} ms "
+                f"(ring model, g = {rec['ranks']}), peak "
+                f"{rec['peak_memory_bytes'] / 2 ** 30:.2f} GiB; "
+                f"clusters {rec['clusters']}, noise {rec['noise']:,}, "
+                f"core {rec['core']:,}; equal to single-rank dbscan")
+            return {k: rec[k] for k in (
+                "points_run", "eps", "wall_s", "regrows", "steps_s",
+                "sent_per_rank", "collective_s", "label_rounds",
+                "local_rounds", "peak_memory_bytes", "clusters", "noise",
+                "core")}
+
+        out["paper"] = {}
+        for shape in D.PAPER_SHAPES:
+            for mk in ("single", "multi"):
+                if (shape, mk) == ("cluster_1b", "single"):
+                    rec = D.run_paper_cell(shape, mk, tmp, force=True,
+                                           device=E.dev)
+                    check(rec["status"] == "skipped"
+                          and "MAX_POINTS" in rec["reason"],
+                          f"rt-dbscan x {shape} x {mk}: {rec['status']}, "
+                          "not skipped")
+                    log(f"  rt-dbscan x {shape} x {mk}: skipped "
+                        f"({rec['reason']})")
+                    continue
+                out["paper"][f"{shape}:{mk}"] = paper(shape, mk, tmp)
+        # at the paper's ε every point is noise, so the equality above sees
+        # no core point, component or label round: DRY_CLUSTER again at the
+        # ε where a point has minPts expected neighbours
+        shape, mk = DRY_CLUSTER
+        rec = out["paper_clustering"] = paper(
+            shape, mk, os.path.join(tmp, "clustering"),
+            eps=D.clustering_eps(D.PAPER_SHAPES[shape]))
+        check(rec["core"] > 0 and rec["clusters"] > 0,
+              f"rt-dbscan x {shape} x {mk} at eps {rec['eps']}: "
+              f"{rec['clusters']} clusters, {rec['core']} core points")
+        launched = {k: v for k, v in E.launches().items() if v}
+        check(launched.get("hash_sweep", 0) > 0,
+              f"the paper cells launched no hash_sweep: {launched}")
+        out["paper_launches"] = launched
+        log(f"  launches of the port's kernels in the paper cells (not in "
+            f"the kernels line): {json.dumps(launched)}")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -4310,11 +4538,13 @@ def main() -> int:
     timed("distributed", phase_distributed, E, runs)
     runs[FIG4[0]]["fig4"] = timed("fig. 4 systems", phase_fig4, E)
     per = timed("kernel times", phase_times, E, runs)
+    dry_out = timed("dry run", phase_dryrun, E, smi, lm_out, lm_train_out)
 
     log("phases s: " + ", ".join(f"{k} {v:.1f}" for k, v in phases.items())
         + f"; total {time.perf_counter() - t_start:.1f}")
     log("LM serving: " + json.dumps(lm_out))
     log("LM training: " + json.dumps(lm_train_out))
+    log("dry run: " + json.dumps(dry_out))
     log(smi)
     print(json.dumps(kernels_line(per)))
     print(json.dumps({"ok": True, "device": {

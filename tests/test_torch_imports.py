@@ -44,8 +44,10 @@ MODULES = ["repro_torch", "repro_torch.baselines",
            "repro_torch.kernels.gathered_sweep",
            "repro_torch.kernels.morton", "repro_torch.kernels.ops",
            "repro_torch.kernels.pairwise_sweep", "repro_torch.kernels.ref",
-           "repro_torch.launch", "repro_torch.launch.cluster",
-           "repro_torch.launch.mesh", "repro_torch.launch.train",
+           "repro_torch.launch", "repro_torch.launch.analysis",
+           "repro_torch.launch.cluster", "repro_torch.launch.dryrun",
+           "repro_torch.launch.mesh", "repro_torch.launch.op_costs",
+           "repro_torch.launch.train",
            "repro_torch.models", "repro_torch.models.encdec",
            "repro_torch.models.layers", "repro_torch.models.model",
            "repro_torch.models.moe", "repro_torch.models.sharding",
