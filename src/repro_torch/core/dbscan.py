@@ -30,13 +30,12 @@ to 0..k−1 for reporting.
 """
 from __future__ import annotations
 
-import time
 from typing import NamedTuple
 
 import torch
 
+from .. import trace
 from . import neighbors as nb
-from .engines import synchronize
 from .union_find import hook_min, pointer_jump
 
 INT_MAX = nb.INT_MAX
@@ -60,6 +59,7 @@ def _hook_step(root, m, core):
     tgt = torch.minimum(m, root)             # m includes own root for core pts
     p2 = hook_min(root, root, tgt, valid=core)
     p2 = pointer_jump(p2)
+    trace.count("host_syncs")
     return p2, not torch.equal(p2, root)
 
 
@@ -112,30 +112,29 @@ def _sorted_driver_fn(sweep_sorted, max_rounds: int, state, order, core,
     original core index) are reconstructed once at the end via a
     segment-min over ``order``.
     """
-    t0 = time.perf_counter()
+    dev = order.device
     n = order.shape[0]
-    core_s = core[order.long()]
-    parent = torch.arange(n, dtype=torch.int32, device=order.device)
-    n_rounds, changed = 0, True
-    while changed and n_rounds < max_rounds:
+    with trace.timed(timings, "stage2_s", dev):
+        core_s = core[order.long()]
+        parent = torch.arange(n, dtype=torch.int32, device=dev)
+        n_rounds, changed = 0, True
+        while changed and n_rounds < max_rounds:
+            with trace.span("stage2.round", round=n_rounds):
+                root = pointer_jump(parent)
+                croot = torch.where(core_s, root, INT_MAX)
+                _, m = sweep_sorted(state, croot)
+                parent, changed = _hook_step(root, m, core_s)
+            n_rounds += 1
         root = pointer_jump(parent)
-        croot = torch.where(core_s, root, INT_MAX)
-        _, m = sweep_sorted(state, croot)
-        parent, changed = _hook_step(root, m, core_s)
-        n_rounds += 1
-    root = pointer_jump(parent)
-    synchronize(order.device)
-    timings["stage2_s"] = time.perf_counter() - t0
 
-    t0 = time.perf_counter()
-    core_label = _label_ids(root, core_s, order)
-    croot = torch.where(core_s, core_label, INT_MAX)
-    _, m = sweep_sorted(state, croot)         # border attachment sweep
-    labels_s = torch.where(core_s, core_label,
-                           torch.where(m != INT_MAX, m, -1)).to(torch.int32)
-    labels = _scatter_sorted(labels_s, order, n, -1)
-    synchronize(order.device)
-    timings["border_s"] = time.perf_counter() - t0
+    with trace.timed(timings, "border_s", dev):
+        core_label = _label_ids(root, core_s, order)
+        croot = torch.where(core_s, core_label, INT_MAX)
+        _, m = sweep_sorted(state, croot)         # border attachment sweep
+        labels_s = torch.where(core_s, core_label,
+                               torch.where(m != INT_MAX, m, -1)
+                               ).to(torch.int32)
+        labels = _scatter_sorted(labels_s, order, n, -1)
     return labels, n_rounds
 
 
@@ -165,39 +164,38 @@ def _frontier_driver_fn(frontier, max_rounds: int, state, order, core,
     pending flags, the previous payload and the per-round live-tile
     histogram stay on the device; the host checks ``changed`` once a round.
     """
-    t0 = time.perf_counter()
     dev = order.device
     n = order.shape[0]
-    core_s = core[order.long()]
-    parent = torch.arange(n, dtype=torch.int32, device=dev)
-    prev_croot = torch.full((n,), -1, dtype=torch.int32, device=dev)
-    pending = torch.ones((frontier.n_tiles,), dtype=torch.bool, device=dev)
-    hist = torch.full((max_rounds,), -1, dtype=torch.int32, device=dev)
-    n_rounds, changed = 0, True
-    while changed and n_rounds < max_rounds:
+    with trace.timed(timings, "stage2_s", dev):
+        core_s = core[order.long()]
+        parent = torch.arange(n, dtype=torch.int32, device=dev)
+        prev_croot = torch.full((n,), -1, dtype=torch.int32, device=dev)
+        pending = torch.ones((frontier.n_tiles,), dtype=torch.bool,
+                             device=dev)
+        hist = torch.full((max_rounds,), -1, dtype=torch.int32, device=dev)
+        n_rounds, changed = 0, True
+        while changed and n_rounds < max_rounds:
+            with trace.span("stage2.round", round=n_rounds):
+                root = pointer_jump(parent)
+                croot = torch.where(core_s, root, INT_MAX)
+                qroot = torch.where(core_s, root, -1)
+                m, pending, n_live = frontier.sweep(
+                    state, croot, qroot, croot != prev_croot, pending)
+                hist[n_rounds] = n_live
+                parent, changed = _hook_step(root, m, core_s)
+                prev_croot = croot
+            n_rounds += 1
         root = pointer_jump(parent)
-        croot = torch.where(core_s, root, INT_MAX)
-        qroot = torch.where(core_s, root, -1)
-        m, pending, n_live = frontier.sweep(state, croot, qroot,
-                                            croot != prev_croot, pending)
-        hist[n_rounds] = n_live
-        parent, changed = _hook_step(root, m, core_s)
-        prev_croot = croot
-        n_rounds += 1
-    root = pointer_jump(parent)
-    synchronize(dev)
-    timings["stage2_s"] = time.perf_counter() - t0
 
-    t0 = time.perf_counter()
-    core_label = _label_ids(root, core_s, order)
-    # the border sweep also skips tiles whose minroot nobody reads
-    m = frontier.border(state, torch.where(core_s, core_label, INT_MAX),
-                        core_s)
-    labels_s = torch.where(core_s, core_label,
-                           torch.where(m != INT_MAX, m, -1)).to(torch.int32)
-    labels = _scatter_sorted(labels_s, order, n, -1)
-    synchronize(dev)
-    timings["border_s"] = time.perf_counter() - t0
+    with trace.timed(timings, "border_s", dev):
+        core_label = _label_ids(root, core_s, order)
+        # the border sweep also skips tiles whose minroot nobody reads
+        m = frontier.border(state, torch.where(core_s, core_label, INT_MAX),
+                            core_s)
+        labels_s = torch.where(core_s, core_label,
+                               torch.where(m != INT_MAX, m, -1)
+                               ).to(torch.int32)
+        labels = _scatter_sorted(labels_s, order, n, -1)
     return labels, n_rounds, hist
 
 
@@ -224,25 +222,31 @@ def dbscan(points, eps: float, min_pts: int, *, engine: str = "grid",
     if eng is None:
         eng = nb.make_engine(points, eps, engine=engine, chunk=chunk,
                              device=device)
+    with trace.span("dbscan", hook_loop=hook_loop):
+        return _stages(eng, len(points), min_pts, max_rounds,
+                       precomputed_counts, hook_loop)
+
+
+def _stages(eng: nb.Engine, n: int, min_pts: int, max_rounds: int,
+            precomputed_counts, hook_loop: str) -> DBSCANResult:
+    """Stage 1, stage 2 and the border on a built engine."""
     dev = eng.device
-    n = len(points)
     timings: dict = {}
 
-    t0 = time.perf_counter()
-    sorted_path = eng.sweep_sorted is not None and \
-        hook_loop in ("device", "frontier")
-    if precomputed_counts is not None:
-        counts = torch.as_tensor(precomputed_counts, dtype=torch.int32,
-                                 device=dev)
-    elif sorted_path and eng.sweep_counts is not None:
-        counts = _counts_stage1_fn(eng.sweep_counts, eng.state, eng.order)
-    elif sorted_path:
-        counts = _sorted_stage1_fn(eng.sweep_sorted, eng.state, eng.order)
-    else:
-        counts = _stage1_fn(eng.sweep, eng.state, n, dev)
-    core = counts >= min_pts
-    synchronize(dev)
-    timings["stage1_s"] = time.perf_counter() - t0
+    with trace.timed(timings, "stage1_s", dev):
+        sorted_path = eng.sweep_sorted is not None and \
+            hook_loop in ("device", "frontier")
+        if precomputed_counts is not None:
+            counts = trace.to_device(precomputed_counts, dev, torch.int32)
+        elif sorted_path and eng.sweep_counts is not None:
+            counts = _counts_stage1_fn(eng.sweep_counts, eng.state,
+                                       eng.order)
+        elif sorted_path:
+            counts = _sorted_stage1_fn(eng.sweep_sorted, eng.state,
+                                       eng.order)
+        else:
+            counts = _stage1_fn(eng.sweep, eng.state, n, dev)
+        core = counts >= min_pts
 
     if sorted_path and hook_loop == "frontier" \
             and eng.sweep_frontier is not None:
@@ -260,21 +264,19 @@ def dbscan(points, eps: float, min_pts: int, *, engine: str = "grid",
                             n_rounds=n_rounds, timings=timings)
 
     # Generic stage 2: per-round loop over the original order.
-    t0 = time.perf_counter()
-    parent = torch.arange(n, dtype=torch.int32, device=dev)
-    n_rounds = 0
-    for _ in range(max_rounds):
-        parent, changed = _round_fn(eng.sweep, eng.state, parent, core)
-        n_rounds += 1
-        if not changed:
-            break
-    synchronize(dev)
-    timings["stage2_s"] = time.perf_counter() - t0
+    with trace.timed(timings, "stage2_s", dev):
+        parent = torch.arange(n, dtype=torch.int32, device=dev)
+        n_rounds = 0
+        for r in range(max_rounds):
+            with trace.span("stage2.round", round=r):
+                parent, changed = _round_fn(eng.sweep, eng.state, parent,
+                                            core)
+            n_rounds += 1
+            if not changed:
+                break
 
     # Border attachment + final labels.
-    t0 = time.perf_counter()
-    labels = _finalize_fn(eng.sweep, eng.state, parent, core)
-    synchronize(dev)
-    timings["border_s"] = time.perf_counter() - t0
+    with trace.timed(timings, "border_s", dev):
+        labels = _finalize_fn(eng.sweep, eng.state, parent, core)
     return DBSCANResult(labels=labels, core=core, counts=counts,
                         n_rounds=n_rounds, timings=timings)

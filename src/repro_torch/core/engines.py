@@ -36,10 +36,12 @@ A second table holds the distributed driver's *local* engines (``brute``,
 """
 from __future__ import annotations
 
-import time
 from typing import Any, Callable, NamedTuple
 
 import torch
+
+from .. import trace
+from ..trace import synchronize  # noqa: F401  (re-export: one helper)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -52,11 +54,6 @@ def resolve_device(device=None) -> torch.device:
             "available; pass device='cpu' to run the plain PyTorch "
             "versions on the CPU")
     return dev
-
-
-def synchronize(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
 
 
 class FrontierPlan(NamedTuple):
@@ -186,11 +183,13 @@ def make_engine(points, eps: float, *, engine: str = "grid",
     """
     entry = get_engine_spec(engine)
     dev = resolve_device(device)
-    points = torch.as_tensor(points, dtype=torch.float32, device=dev)
-    t0 = time.perf_counter()
-    eng = entry.build(points, float(eps), chunk=chunk, dims=dims, spec=spec,
-                      **extra)
-    synchronize(dev)
+    built: dict = {}
+    with trace.span("make_engine", engine=engine):
+        with trace.span("engine.to_device"):
+            points = trace.to_device(points, dev, torch.float32)
+        with trace.timed(built, "build_s", dev, name="engine.build"):
+            eng = entry.build(points, float(eps), chunk=chunk, dims=dims,
+                              spec=spec, **extra)
     timings = dict(eng.timings or {})
-    timings.setdefault("build_s", time.perf_counter() - t0)
+    timings.setdefault("build_s", built["build_s"])
     return eng._replace(timings=timings)

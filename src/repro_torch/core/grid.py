@@ -31,6 +31,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import trace
 from ..kernels import ref as _kref
 from .engines import resolve_device
 
@@ -380,23 +381,27 @@ def plan_csr_grid(points_np: np.ndarray, eps: float, *, dims: int = 3,
     n = len(points_np)
     if n < 1:
         raise ValueError("plan_csr_grid needs at least one point")
-    pts = np.asarray(points_np, np.float32)
-    origin = tuple(float(v) for v in pts.min(axis=0))
-    bits = 15 if dims == 2 else 10
-    ext = float((pts.max(axis=0) - pts.min(axis=0))[:dims].max())
+    with trace.span("plan.bounds"):
+        pts = np.asarray(points_np, np.float32)
+        origin = tuple(float(v) for v in pts.min(axis=0))
+        bits = 15 if dims == 2 else 10
+        ext = float((pts.max(axis=0) - pts.min(axis=0))[:dims].max())
     side = float(eps)
     max_cells = (1 << bits) - 2
     if math.floor(ext / side) + 1 > max_cells:
         side = ext / (max_cells - 1) * (1 + 1e-5)
     dev = resolve_device(device)
-    _, _, lo, hi, _ = _csr_layout(torch.as_tensor(pts, device=dev), side,
-                                  origin, dims, bits)
-    lo, hi = lo.cpu().numpy(), hi.cpu().numpy()
-    T = max(1, -(-n // chunk))
-    pad_idx = np.minimum(np.arange(T * chunk), n - 1)
-    lo_t = lo[pad_idx].reshape(T, chunk).min(axis=1)
-    hi_t = hi[pad_idx].reshape(T, chunk).max(axis=1)
-    need = int((hi_t - (lo_t // block_k) * block_k).max())
+    with trace.span("plan.layout"):
+        _, _, lo, hi, _ = _csr_layout(trace.to_device(pts, dev), side,
+                                      origin, dims, bits)
+    with trace.span("plan.readback"):
+        lo, hi = trace.to_host(lo).numpy(), trace.to_host(hi).numpy()
+    with trace.span("plan.tiles"):
+        T = max(1, -(-n // chunk))
+        pad_idx = np.minimum(np.arange(T * chunk), n - 1)
+        lo_t = lo[pad_idx].reshape(T, chunk).min(axis=1)
+        hi_t = hi[pad_idx].reshape(T, chunk).max(axis=1)
+        need = int((hi_t - (lo_t // block_k) * block_k).max())
     slab = -(-max(need, 1) // block_k) * block_k + margin_blocks * block_k
     n_cand = max(-(-n // block_k) * block_k, slab)
     return CSRGridSpec(side=side, origin=origin, dims=dims, bits=bits,

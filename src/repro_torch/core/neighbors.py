@@ -36,12 +36,12 @@ ingest.
 from __future__ import annotations
 
 import functools
-import time
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from .. import trace
 from ..kernels import gathered_sweep as _gathered
 from ..kernels import ops
 from ..kernels import ref as _kref
@@ -378,16 +378,22 @@ def _build_brute(points, eps, *, chunk=2048, dims=None, spec=None):
 
 def _build_csr(points, eps, *, chunk=2048, dims=None, spec=None):
     eps2 = float(eps) ** 2   # in double, rounded once to f32 by the sweep
-    pts_np = points.cpu().numpy()
+    with trace.span("plan.to_host"):
+        pts_np = trace.to_host(points).numpy()
     if dims is None:
-        dims = infer_dims(pts_np)
-    t0 = time.perf_counter()
-    if spec is None:
-        spec = grid_mod.plan_csr_grid(pts_np, float(eps), dims=dims,
-                                      device=points.device)
-    plan_s = time.perf_counter() - t0
-    g = grid_mod.build_csr_grid(points, spec)
-    if bool(g.overflow):
+        with trace.span("plan.infer_dims"):
+            dims = infer_dims(pts_np)
+    timings: dict = {}
+    with trace.timed(timings, "plan_s"):
+        if spec is None:
+            spec = grid_mod.plan_csr_grid(pts_np, float(eps), dims=dims,
+                                          device=points.device)
+    with trace.span("build.layout"):
+        g = grid_mod.build_csr_grid(points, spec)
+    with trace.span("build.check"):
+        trace.count("host_syncs")
+        overflow = bool(g.overflow)
+    if overflow:
         raise ValueError(
             "CSR grid build overflowed the planned slab capacity "
             f"(slab={spec.slab}) — the spec was planned for different "
@@ -405,7 +411,7 @@ def _build_csr(points, eps, *, chunk=2048, dims=None, spec=None):
 
     return Engine("grid", g, fn, points.device, meta=spec,
                   sweep_sorted=fn_sorted, order=g.order,
-                  timings={"plan_s": plan_s}, sweep_counts=fn_counts,
+                  timings=timings, sweep_counts=fn_counts,
                   neighbors=_csr_neighbors_fn(spec, eps2), query=query,
                   sweep_frontier=_csr_frontier_fns(spec, eps2))
 
@@ -415,17 +421,17 @@ def _build_grid_hash(points, eps, *, chunk=2048, dims=None, spec=None):
     pts_np = points.cpu().numpy()
     if dims is None:
         dims = infer_dims(pts_np)
-    t0 = time.perf_counter()
-    if spec is None:
-        spec = grid_mod.plan_grid(pts_np, float(eps), dims=dims)
-    plan_s = time.perf_counter() - t0
+    timings: dict = {}
+    with trace.timed(timings, "plan_s"):
+        if spec is None:
+            spec = grid_mod.plan_grid(pts_np, float(eps), dims=dims)
     g = grid_mod.build_grid(points, spec)
     buckets, cell_valid = grid_mod.neighbor_buckets(points, spec)
     state = GridState(grid=g, buckets=buckets, cell_valid=cell_valid,
                       points=points,
                       occupancy=g.valid.sum(dim=1, dtype=torch.int32))
     return Engine("grid-hash", state, _grid_sweep_fn(eps2, chunk),
-                  points.device, meta=spec, timings={"plan_s": plan_s},
+                  points.device, meta=spec, timings=timings,
                   neighbors=_grid_hash_neighbors_fn(eps2, chunk))
 
 

@@ -17,6 +17,8 @@ from __future__ import annotations
 
 import torch
 
+from .. import trace
+
 INT_MAX = 2**31 - 1
 
 __all__ = [
@@ -36,7 +38,9 @@ def init_parents(n: int, device=None) -> torch.Tensor:
 def pointer_jump(parent: torch.Tensor) -> torch.Tensor:
     """Full path compression: iterate ``p = p[p]`` until fixpoint."""
     while True:
+        trace.count("jump_steps")
         p2 = parent[parent.long()]
+        trace.count("host_syncs")
         if torch.equal(p2, parent):
             return parent
         parent = p2

@@ -26,8 +26,8 @@ import time
 from typing import NamedTuple
 
 import numpy as np
-import torch
 
+from .. import trace
 from ..core import neighbors as nb
 from ..core.engines import synchronize
 from . import faults
@@ -74,9 +74,15 @@ def assign(snapshot: ClusterSnapshot, queries, *,
     and latency/program-key telemetry across calls; without one an
     ephemeral scheduler still buckets.
     """
+    with trace.span("serve.assign"):
+        return _assign(snapshot, queries, scheduler, block_q, max_regrow)
+
+
+def _assign(snapshot, queries, scheduler, block_q, max_regrow):
     sched = scheduler or BucketScheduler(min_bucket=block_q)
-    q_np = validate_points(queries, name="queries")
-    q_pad, nq = sched.pad(q_np)
+    with trace.span("assign.pad"):
+        q_np = validate_points(queries, name="queries")
+        q_pad, nq = sched.pad(q_np)
     if q_pad.shape[0] % block_q:
         raise ValueError(
             f"bucket {q_pad.shape[0]} not a multiple of block_q={block_q}; "
@@ -84,7 +90,8 @@ def assign(snapshot: ClusterSnapshot, queries, *,
     spec = snapshot.spec
     eps2 = float(snapshot.eps) ** 2
     dev = snapshot.device
-    q_dev = torch.as_tensor(q_pad, device=dev)
+    with trace.span("assign.to_device"):
+        q_dev = trace.to_device(q_pad, dev)
 
     slab = snapshot.slab
     t0 = time.perf_counter()
@@ -95,24 +102,29 @@ def assign(snapshot: ClusterSnapshot, queries, *,
         # snapshots must not conflate them
         return (spec, q_pad.shape[0], s, block_q, dev)
 
-    for attempt in range(max_regrow + 1):
-        fn = nb._csr_cross_query_fn(spec, eps2, slab, block_q)
-        counts, minroot, mind2, overflow = fn(
-            snapshot.codes, snapshot.cands, snapshot.croot_sorted, q_dev, nq)
-        synchronize(dev)
-        if not bool(overflow) and not faults.fire("serve.assign.overflow"):
-            break
-        sched.note_trace(program_key(slab))  # the overflowed attempt ran
-        sched.note_regrow()
-        slab = next_slab(slab, spec.n_cand, attempt=attempt,
-                         max_regrow=max_regrow, what="cross-query")
-        snapshot.note_slab(slab)
+    with trace.span("assign.sweep"):
+        for attempt in range(max_regrow + 1):
+            fn = nb._csr_cross_query_fn(spec, eps2, slab, block_q)
+            counts, minroot, mind2, overflow = fn(
+                snapshot.codes, snapshot.cands, snapshot.croot_sorted, q_dev,
+                nq)
+            synchronize(dev)
+            trace.count("host_syncs")
+            if not bool(overflow) and \
+                    not faults.fire("serve.assign.overflow"):
+                break
+            sched.note_trace(program_key(slab))  # the overflowed attempt ran
+            sched.note_regrow()
+            slab = next_slab(slab, spec.n_cand, attempt=attempt,
+                             max_regrow=max_regrow, what="cross-query")
+            snapshot.note_slab(slab)
     seconds = time.perf_counter() - t0
     sched.note_call(program_key(slab), seconds)
 
-    counts = counts[:nq].cpu().numpy()
-    minroot = minroot[:nq].cpu().numpy()
-    mind2 = mind2[:nq].cpu().numpy()
+    with trace.span("assign.readback"):
+        counts = trace.to_host(counts[:nq]).numpy()
+        minroot = trace.to_host(minroot[:nq]).numpy()
+        mind2 = trace.to_host(mind2[:nq]).numpy()
     labels = np.where(minroot != INT_MAX, minroot, -1).astype(np.int32)
     return AssignResult(labels=labels, counts=counts,
                         dist=np.sqrt(mind2, dtype=np.float32),

@@ -58,7 +58,7 @@ MODULES = ["repro_torch", "repro_torch.baselines",
            "repro_torch.serve.ingest", "repro_torch.serve.resilience",
            "repro_torch.serve.router", "repro_torch.serve.scheduler",
            "repro_torch.serve.shard", "repro_torch.serve.snapshot",
-           "repro_torch.serve.wal", "repro_torch.train",
+           "repro_torch.serve.wal", "repro_torch.trace", "repro_torch.train",
            "repro_torch.train.optimizer", "repro_torch.train.trainer"]
 
 
