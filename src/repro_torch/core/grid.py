@@ -3,10 +3,12 @@
 **Cell-sorted CSR layout** (engine ``grid``). Points are reordered by the
 Morton code of their ε-cell, so that every query tile's candidates form one
 contiguous slab of the sorted array, sized by the tile's actual local
-occupancy: O(n) memory and O(n · window) work. ``plan_csr_grid`` (host)
-runs the same sort-by-cell pass the build runs and measures the worst
-per-tile slab extent, which fixes the static slab capacity;
-``build_csr_grid`` (device) sorts and derives per-tile slabs.
+occupancy: O(n) memory and O(n · window) work. ``plan_and_build_csr_grid``
+plans on the points' device: the domain's bounds, then the sort-by-cell
+pass, whose worst per-tile slab extent fixes the static slab capacity, then
+per-tile slabs from that same pass; the host reads back the bounds and the
+one extent. ``plan_csr_grid`` is its plan for host points;
+``build_csr_grid`` sorts and derives per-tile slabs under a given plan.
 ``slab_payload_min``, ``slab_touched`` and ``compact_tiles`` serve the
 frontier round driver's live-tile test.
 
@@ -278,7 +280,8 @@ def _csr_layout(points, side: float, origin: tuple, dims: int, bits: int):
     """Shared sort-by-cell pass: identical arithmetic runs at plan time and
     build time, so the plan's slab capacity is valid for the build. The
     sort is stable, as ``jnp.argsort`` is: ties in the Morton code keep
-    their input order."""
+    their input order. Each pass adds one to the ``csr_layouts`` counter."""
+    trace.count("csr_layouts")
     cells = csr_cells(points, side, origin, dims, bits)
     codes = _kref.morton_encode_ref(cells, dims=dims)
     order = torch.argsort(codes, stable=True)
@@ -292,17 +295,17 @@ def _edge_pad_index(n: int, length: int, device) -> torch.Tensor:
     return torch.clamp(torch.arange(length, device=device), max=max(n - 1, 0))
 
 
-def tile_slabs(lo, hi, n: int, *, n_tiles: int, chunk: int, block_k: int,
-               slab: int, n_cand: int):
-    """Reduce per-query window bounds to per-tile slab (start, nblk).
-
-    Queries beyond ``n`` are edge-repeated. ``overflow`` fires when a
-    tile's window outgrows the static ``slab`` capacity.
-    """
-    bk = block_k
+def _tile_extents(lo, hi, n: int, *, n_tiles: int, chunk: int):
+    """Per-tile (min lo, max hi) of per-query window bounds, queries beyond
+    ``n`` edge-repeated."""
     pad_idx = _edge_pad_index(n, n_tiles * chunk, lo.device)
-    lo_t = lo[pad_idx].reshape(n_tiles, chunk).amin(dim=1)
-    hi_t = hi[pad_idx].reshape(n_tiles, chunk).amax(dim=1)
+    return (lo[pad_idx].reshape(n_tiles, chunk).amin(dim=1),
+            hi[pad_idx].reshape(n_tiles, chunk).amax(dim=1))
+
+
+def _slabs(lo_t, hi_t, *, block_k: int, slab: int, n_cand: int):
+    """Per-tile slab (start, nblk, overflow) from the tile extents."""
+    bk = block_k
     start = torch.clamp(torch.div(lo_t, bk, rounding_mode="floor") * bk, 0,
                         n_cand - slab)
     need = hi_t - start
@@ -310,6 +313,17 @@ def tile_slabs(lo, hi, n: int, *, n_tiles: int, chunk: int, block_k: int,
     nblk = torch.clamp(torch.div(need + bk - 1, bk, rounding_mode="floor"), 0,
                        slab // bk)
     return start.to(torch.int32), nblk.to(torch.int32), overflow
+
+
+def tile_slabs(lo, hi, n: int, *, n_tiles: int, chunk: int, block_k: int,
+               slab: int, n_cand: int):
+    """Reduce per-query window bounds to per-tile slab (start, nblk).
+
+    Queries beyond ``n`` are edge-repeated. ``overflow`` fires when a
+    tile's window outgrows the static ``slab`` capacity.
+    """
+    return _slabs(*_tile_extents(lo, hi, n, n_tiles=n_tiles, chunk=chunk),
+                  block_k=block_k, slab=slab, n_cand=n_cand)
 
 
 def slab_payload_min(payload, starts, nblk, *, block_k: int,
@@ -367,70 +381,110 @@ def compact_tiles(live):
     return torch.where(idx < n_live, active, park), n_live
 
 
+def csr_bounds(points: torch.Tensor, dims: int | None = None):
+    """The per-column (min, max) of ``points`` as f32 numpy arrays, reduced
+    on the points' device and read back in one copy, and ``dims``: as
+    given, else inferred from the same read as ``neighbors.infer_dims``
+    infers it (2 for (n, 3) points whose z min and max are both zero, else
+    the column count; a NaN z makes both NaN, so 3)."""
+    mins, maxs = trace.to_host(torch.stack(torch.aminmax(points, dim=0))) \
+        .numpy()
+    if dims is None:
+        flat = points.shape[1] == 3 and mins[2] == 0 and maxs[2] == 0
+        dims = 2 if flat else points.shape[1]
+    return mins, maxs, dims
+
+
+def plan_and_build_csr_grid(points: torch.Tensor, eps: float, *,
+                            dims: int | None = None, chunk: int = 256,
+                            block_k: int = 512, margin_blocks: int = 1,
+                            timings: dict | None = None):
+    """Plan and build the CSR grid of ``points`` (n, 3) f32 on their device:
+    ``(CSRGridSpec, CSRGrid)``.
+
+    The plan reads back the domain's bounds (``csr_bounds``, which also
+    infers ``dims`` where none is given), runs the sort-by-cell layout, and
+    reads back the worst per-tile slab extent, so the sweep shapes are
+    static yet sized by *actual* occupancy. ``side`` grows beyond ε only
+    when the extent exceeds the Morton bit budget. The build then derives
+    per-tile slabs from that same layout. The plan's host seconds go to
+    ``timings["plan_s"]`` where ``timings`` is given.
+    """
+    n = points.shape[0]
+    if n < 1:
+        raise ValueError("plan_csr_grid needs at least one point")
+    with trace.timed({} if timings is None else timings, "plan_s"):
+        with trace.span("plan.bounds"):
+            mins, maxs, dims = csr_bounds(points, dims)
+            origin = tuple(float(v) for v in mins)
+            bits = 15 if dims == 2 else 10
+            ext = float((maxs - mins)[:dims].max())
+        side = float(eps)
+        max_cells = (1 << bits) - 2
+        if math.floor(ext / side) + 1 > max_cells:
+            side = ext / (max_cells - 1) * (1 + 1e-5)
+        with trace.span("plan.layout"):
+            order, spoints, lo, hi, codes = _csr_layout(points, side, origin,
+                                                        dims, bits)
+        with trace.span("plan.need"):
+            T = max(1, -(-n // chunk))
+            lo_t, hi_t = _tile_extents(lo, hi, n, n_tiles=T, chunk=chunk)
+            need = int(trace.to_host(
+                (hi_t - torch.div(lo_t, block_k, rounding_mode="floor")
+                 * block_k).amax()))
+        slab = -(-max(need, 1) // block_k) * block_k \
+            + margin_blocks * block_k
+        n_cand = max(-(-n // block_k) * block_k, slab)
+        spec = CSRGridSpec(side=side, origin=origin, dims=dims, bits=bits,
+                           chunk=chunk, block_k=block_k, n=n, n_tiles=T,
+                           slab=slab, n_cand=n_cand)
+    return spec, _grid_from_layout(spec, order, spoints, codes, lo_t, hi_t)
+
+
 def plan_csr_grid(points_np: np.ndarray, eps: float, *, dims: int = 3,
                   chunk: int = 256, block_k: int = 512,
                   margin_blocks: int = 1, device=None) -> CSRGridSpec:
-    """Host-side planning pass for the CSR engine.
+    """The plan of ``plan_and_build_csr_grid`` for host points, put on
+    ``device`` (``None`` meaning ``cuda``) as f32; the grid is dropped."""
+    pts = trace.to_device(np.asarray(points_np, np.float32),
+                          resolve_device(device))
+    spec, _ = plan_and_build_csr_grid(pts, eps, dims=dims, chunk=chunk,
+                                      block_k=block_k,
+                                      margin_blocks=margin_blocks)
+    return spec
 
-    Runs the same sort-by-cell layout the build runs (on ``device``,
-    ``None`` meaning ``cuda``) and measures the worst per-tile slab extent,
-    so the sweep shapes are static yet sized by *actual* occupancy.
-    ``side`` grows beyond ε only when the extent exceeds the Morton bit
-    budget.
-    """
-    n = len(points_np)
-    if n < 1:
-        raise ValueError("plan_csr_grid needs at least one point")
-    with trace.span("plan.bounds"):
-        pts = np.asarray(points_np, np.float32)
-        origin = tuple(float(v) for v in pts.min(axis=0))
-        bits = 15 if dims == 2 else 10
-        ext = float((pts.max(axis=0) - pts.min(axis=0))[:dims].max())
-    side = float(eps)
-    max_cells = (1 << bits) - 2
-    if math.floor(ext / side) + 1 > max_cells:
-        side = ext / (max_cells - 1) * (1 + 1e-5)
-    dev = resolve_device(device)
-    with trace.span("plan.layout"):
-        _, _, lo, hi, _ = _csr_layout(trace.to_device(pts, dev), side,
-                                      origin, dims, bits)
-    with trace.span("plan.readback"):
-        lo, hi = trace.to_host(lo).numpy(), trace.to_host(hi).numpy()
-    with trace.span("plan.tiles"):
-        T = max(1, -(-n // chunk))
-        pad_idx = np.minimum(np.arange(T * chunk), n - 1)
-        lo_t = lo[pad_idx].reshape(T, chunk).min(axis=1)
-        hi_t = hi[pad_idx].reshape(T, chunk).max(axis=1)
-        need = int((hi_t - (lo_t // block_k) * block_k).max())
-    slab = -(-max(need, 1) // block_k) * block_k + margin_blocks * block_k
-    n_cand = max(-(-n // block_k) * block_k, slab)
-    return CSRGridSpec(side=side, origin=origin, dims=dims, bits=bits,
-                       chunk=chunk, block_k=block_k, n=n, n_tiles=T,
-                       slab=slab, n_cand=n_cand)
+
+def _grid_from_layout(spec: CSRGridSpec, order, spoints, codes, lo_t,
+                      hi_t) -> CSRGrid:
+    """The built grid from a sort-by-cell layout and its tile extents."""
+    n = spoints.shape[0]
+    with trace.span("build.slabs"):
+        starts, nblk, overflow = _slabs(lo_t, hi_t, block_k=spec.block_k,
+                                        slab=spec.slab, n_cand=spec.n_cand)
+        q_sorted = spoints[_edge_pad_index(n, spec.n_tiles * spec.chunk,
+                                           spoints.device)].contiguous()
+        cands = torch.full((3, spec.n_cand), BIG, dtype=torch.float32,
+                           device=spoints.device)
+        cands[:, :n] = spoints.T
+    return CSRGrid(order=order, q_sorted=q_sorted, cands=cands,
+                   starts=starts, nblk=nblk, overflow=overflow, codes=codes)
 
 
 def build_csr_grid(points: torch.Tensor, spec: CSRGridSpec) -> CSRGrid:
-    """CSR build on the points' device: sort by cell code, derive per-tile
-    slabs.
+    """CSR build on the points' device under a given plan: sort by cell
+    code, derive per-tile slabs.
 
     The ``overflow`` flag guards the plan/build parity contract (it fires
     only if the build's quantization disagrees with the plan beyond the slab
     margin — callers should check it once per build).
     """
-    n = points.shape[0]
-    order, spoints, lo, hi, codes = _csr_layout(points, spec.side,
-                                                spec.origin, spec.dims,
-                                                spec.bits)
-    starts, nblk, overflow = tile_slabs(
-        lo, hi, n, n_tiles=spec.n_tiles, chunk=spec.chunk,
-        block_k=spec.block_k, slab=spec.slab, n_cand=spec.n_cand)
-    q_sorted = spoints[_edge_pad_index(n, spec.n_tiles * spec.chunk,
-                                       points.device)].contiguous()
-    cands = torch.full((3, spec.n_cand), BIG, dtype=torch.float32,
-                       device=points.device)
-    cands[:, :n] = spoints.T
-    return CSRGrid(order=order, q_sorted=q_sorted, cands=cands,
-                   starts=starts, nblk=nblk, overflow=overflow, codes=codes)
+    with trace.span("build.layout"):
+        order, spoints, lo, hi, codes = _csr_layout(points, spec.side,
+                                                    spec.origin, spec.dims,
+                                                    spec.bits)
+        lo_t, hi_t = _tile_extents(lo, hi, points.shape[0],
+                                   n_tiles=spec.n_tiles, chunk=spec.chunk)
+    return _grid_from_layout(spec, order, spoints, codes, lo_t, hi_t)
 
 
 def spec_from_fields(d: dict, kind=CSRGridSpec):

@@ -378,17 +378,12 @@ def _build_brute(points, eps, *, chunk=2048, dims=None, spec=None):
 
 def _build_csr(points, eps, *, chunk=2048, dims=None, spec=None):
     eps2 = float(eps) ** 2   # in double, rounded once to f32 by the sweep
-    with trace.span("plan.to_host"):
-        pts_np = trace.to_host(points).numpy()
-    if dims is None:
-        with trace.span("plan.infer_dims"):
-            dims = infer_dims(pts_np)
-    timings: dict = {}
-    with trace.timed(timings, "plan_s"):
-        if spec is None:
-            spec = grid_mod.plan_csr_grid(pts_np, float(eps), dims=dims,
-                                          device=points.device)
-    with trace.span("build.layout"):
+    if spec is None:
+        timings: dict = {}
+        spec, g = grid_mod.plan_and_build_csr_grid(points, float(eps),
+                                                   dims=dims, timings=timings)
+    else:
+        timings = {"plan_s": 0.0}    # a reused plan: nothing planned
         g = grid_mod.build_csr_grid(points, spec)
     with trace.span("build.check"):
         trace.count("host_syncs")

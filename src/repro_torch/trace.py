@@ -20,9 +20,10 @@ is given a device, with recording on or off: it is how the program writes
 its ``timings``.
 
 Spans of the main path (``dbscan``, engine ``grid``), outermost first:
-``make_engine`` > ``engine.to_device``, ``engine.build`` > ``plan.to_host``,
-``plan.infer_dims``, ``plan`` (> ``plan.bounds``, ``plan.layout``,
-``plan.readback``, ``plan.tiles``), ``build.layout``, ``build.check``; and
+``make_engine`` > ``engine.to_device``, ``engine.build`` > ``plan`` (>
+``plan.bounds``, ``plan.layout``, ``plan.need``), ``build.slabs``,
+``build.check``, where a reused plan builds under ``build.layout`` and
+``build.slabs`` instead of ``plan``; and
 ``dbscan`` > ``stage1``, ``stage2`` (> ``stage2.round``, attr ``round``),
 ``border``. ``serve.assign`` > ``assign.pad``, ``assign.to_device``,
 ``assign.sweep``, ``assign.readback``.
@@ -31,7 +32,8 @@ Counters: ``h2d_bytes`` and ``d2h_bytes``, the bytes of each bulk copy
 between the host and another device (0 on a CPU run); ``host_syncs``, each
 point where the host waits for the engine's device (a synchronize, a
 ``torch.equal``, a flag read as a bool, a ``.cpu()``), counted on every
-device alike; ``jump_steps``, each step of ``union_find.pointer_jump``.
+device alike; ``jump_steps``, each step of ``union_find.pointer_jump``;
+``csr_layouts``, each sort-by-cell pass of the CSR grid (``grid._csr_layout``).
 """
 from __future__ import annotations
 

@@ -31,7 +31,7 @@ CASES = [
     ("blobs3d", lambda: synth.blobs(800, k=4, dims=3, seed=1), 0.12, 5),
 ]
 DRIVERS = ["device", "frontier", "host"]
-PLAN_SPANS = ["plan.bounds", "plan.layout", "plan.readback", "plan.tiles"]
+PLAN_SPANS = ["plan.bounds", "plan.layout", "plan.need"]
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -299,13 +299,42 @@ def test_make_engine_records_the_plan_and_the_build():
     assert top.parent is None and top.attrs == {"engine": "grid"}
     assert _names(got, top.id) == ["engine.to_device", "engine.build"]
     build = _one(got, "engine.build")
-    assert _names(got, build.id) == ["plan.to_host", "plan.infer_dims",
-                                     "plan", "build.layout", "build.check"]
+    assert _names(got, build.id) == ["plan", "build.slabs", "build.check"]
     assert _names(got, _one(got, "plan").id) == PLAN_SPANS
-    # points and lo/hi read to the host, the overflow flag, the synchronize
-    assert trace.total(got, "host_syncs") == 5
+    # the bounds read (plan.bounds), the worst tile extent's read
+    # (plan.need), the overflow flag (build.check), the synchronize that
+    # ends build_s (engine.build)
+    assert trace.total(got, "host_syncs") == 4
+    for name in ("plan.bounds", "plan.need", "build.check"):
+        assert trace.total(got, "host_syncs", under=name) == 1, name
     assert trace.total(got, "h2d_bytes") == trace.total(got, "d2h_bytes") \
         == 0
+
+
+@pytest.mark.parametrize("reuse", [False, True],
+                         ids=["planned", "spec_passed"])
+def test_one_csr_layout_a_build_and_none_in_dbscan(reuse):
+    pts = synth.load("roadnet2d", 2000, seed=2)
+    ref = make_engine(pts, 0.03, device="cpu")
+    with trace.recording() as rec:
+        eng = make_engine(pts, 0.03, spec=ref.meta if reuse else None,
+                          device="cpu")
+        dbscan(pts, 0.03, 4, eng=eng)
+        got = rec.take()
+    assert eng.meta == ref.meta
+    for f in eng.state._fields:
+        assert torch.equal(getattr(eng.state, f), getattr(ref.state, f)), f
+    assert trace.total(got, "csr_layouts") == 1
+    assert trace.total(got, "csr_layouts", under="engine.build") == 1
+    assert trace.total(got, "csr_layouts", under="dbscan") == 0
+    build = _one(got, "engine.build")
+    if reuse:
+        assert _names(got, build.id) == ["build.layout", "build.slabs",
+                                         "build.check"]
+        assert list(eng.timings) == ["plan_s", "build_s"]
+        assert eng.timings["plan_s"] == 0.0
+    else:
+        assert _one(got, "plan.layout").parent == _one(got, "plan").id
 
 
 def test_other_engines_record_only_the_build():
@@ -379,19 +408,21 @@ def card():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dataset,n,eps,mib", [
-    ("roadnet2d", 434_874, 0.02, 18.25), ("iono3d", 1_000_000, 2.0, 41.96)])
-def test_a_cluster_call_copies_three_point_sets_and_lo_hi(card, dataset, n,
-                                                          eps, mib):
-    """Points to the card, back for the plan, to the card again, and
-    ``lo``/``hi`` back: 3 × n × 12 B + 2 × n × 4 B."""
+    ("roadnet2d", 434_874, 0.02, 4.98), ("iono3d", 1_000_000, 2.0, 11.44)])
+def test_a_cluster_call_copies_the_points_once_and_the_plans_scalars(
+        card, dataset, n, eps, mib):
+    """Points to the card once (n × 12 B); back to the host only the plan's
+    scalars: the (2, 3) f32 bounds and the int32 worst tile extent."""
     pts = synth.load(dataset, n, seed=0)
     make_engine(pts, eps, device=card)              # build the kernels
     with trace.recording() as rec:
         eng = make_engine(pts, eps, device=card)
         res = dbscan(pts, eps, 8, eng=eng)
         got = rec.take()
+    assert trace.total(got, "h2d_bytes") == n * 12
+    assert trace.total(got, "d2h_bytes") == 2 * 3 * 4 + 4
     moved = trace.total(got, "h2d_bytes") + trace.total(got, "d2h_bytes")
-    assert moved == 3 * n * 12 + 2 * n * 4
     assert abs(moved / 2**20 - mib) < 0.01
     assert trace.total(got, "h2d_bytes", under="dbscan") == 0
+    assert trace.total(got, "csr_layouts") == 1
     assert sum(s.name == "stage2.round" for s in got.spans) == res.n_rounds

@@ -44,7 +44,7 @@ PROGRAM = [_span("repro_torch.make_engine", 1, 99),
            _span("repro_torch.engine.build", 2, 98),
            _span("repro_torch.plan", 3, 60),
            _span("repro_torch.plan.bounds", 4, 40),
-           _span("repro_torch.plan.readback", 45, 55),
+           _span("repro_torch.plan.need", 45, 55),
            _span("repro_torch.dbscan", 101, 199),
            _span("repro_torch.stage2", 110, 190),
            _span("repro_torch.stage2.round", 111, 150),
@@ -53,7 +53,7 @@ DEVICE = [_op(-5, 2), _op(40, 45, "gpu_memcpy", "Memcpy HtoD"),
           _op(55, 58), _op(58, 97, "gpu_memset"), _op(130, 140),
           _op(135, 145), _op(160, 170), _op(205, 230)]
 # idle gaps, by midpoint: 2-40 (21) in plan.bounds, 45-55 (50) in
-# plan.readback, 97-130 (113.5) in round 0, 145-160 (152.5) and 170-205
+# plan.need, 97-130 (113.5) in round 0, 145-160 (152.5) and 170-205
 # (187.5) in round 1
 
 
@@ -62,7 +62,7 @@ def test_gaps_are_named_by_the_innermost_span():
     assert got == {
         "repro_torch.plan.bounds": [pytest.approx(38e-6), 1],
         "repro_torch.stage2.round": [pytest.approx(83e-6), 3],
-        "repro_torch.plan.readback": [pytest.approx(10e-6), 1],
+        "repro_torch.plan.need": [pytest.approx(10e-6), 1],
     }
 
 

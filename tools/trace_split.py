@@ -13,8 +13,10 @@ sets up a cell of ``portbench/`` as its harness does: the pool from
    ``repro_torch.trace.recording()`` where ``DIR`` has the module (an older
    tree runs them unrecorded). Per call, means of what the benchmark reads
    (``plan_ms``, ``build_ms``, ``stage2_ms``, ``hook_rounds``) and of what the
-   record holds: ``plan_host_ms`` (``plan.infer_dims`` + ``plan.bounds`` +
-   ``plan.tiles``, the plan's NumPy work), ``copy_mib`` (``h2d_bytes`` +
+   record holds: ``plan_host_ms`` (``plan.layout``: the host enqueueing the
+   plan's one sort-by-cell pass, eager launches the card waits on; the
+   plan's two reads, ``plan.bounds`` and ``plan.need``, are left out, since
+   there the host waits on the card), ``copy_mib`` (``h2d_bytes`` +
    ``d2h_bytes``, in MiB), ``stage2_syncs`` (``host_syncs`` inside
    ``stage2``), ``host_syncs``, ``jump_steps`` and each span's host ms.
    The device's busy and window seconds and idle share are
@@ -49,7 +51,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 PREFIXES = ("repro_torch.", "portbench.")
-PLAN_HOST = ("plan.infer_dims", "plan.bounds", "plan.tiles")
+PLAN_HOST = ("plan.layout",)
 
 
 def name_gaps(events):
