@@ -516,7 +516,8 @@ def _wave_fns(spec: WavefrontSpec):
             state.bvh, state.bvh.pts_sorted, croot_sorted, bound=bound, **kw)
         return counts, minroot
 
-    def sweep_counts(state: BVHState):
+    def sweep_counts(state: BVHState, work=None):
+        # the traversal keeps no candidate runs: ``work`` stays empty
         counts, _, _, _ = wavefront_sweep(
             state.bvh, state.bvh.pts_sorted, _payload_free(state), **kw)
         return counts

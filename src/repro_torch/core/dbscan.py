@@ -50,7 +50,10 @@ class DBSCANResult(NamedTuple):
     #   tiles swept per hooking round (frontier driver only; -1 past
     #   n_rounds)
     timings: dict | None = None  # host seconds of stage1_s, stage2_s and
-    #   border_s, each ended by a device synchronize
+    #   border_s, each ended by a device synchronize; and one count,
+    #   stage1_kept_pairs: the pairs stage 1's sweep tested (kept runs x
+    #   run width x query tile rows, padding rows included), where the
+    #   engine's sweep_counts counts them
 
 
 def _hook_step(root, m, core):
@@ -97,9 +100,11 @@ def _sorted_stage1_fn(sweep_sorted, state, order):
     return _scatter_sorted(counts_s, order, n, 0)
 
 
-def _counts_stage1_fn(sweep_counts, state, order):
-    """Stage 1 through the counts-only sweep (no payload plane at all)."""
-    return _scatter_sorted(sweep_counts(state), order, order.shape[0], 0)
+def _counts_stage1_fn(sweep_counts, state, order, work=None):
+    """Stage 1 through the counts-only sweep (no payload plane at all);
+    ``work`` (a dict) receives what the sweep counts of its work."""
+    return _scatter_sorted(sweep_counts(state, work=work), order,
+                           order.shape[0], 0)
 
 
 def _sorted_driver_fn(sweep_sorted, max_rounds: int, state, order, core,
@@ -232,6 +237,7 @@ def _stages(eng: nb.Engine, n: int, min_pts: int, max_rounds: int,
     """Stage 1, stage 2 and the border on a built engine."""
     dev = eng.device
     timings: dict = {}
+    work: dict = {}
 
     with trace.timed(timings, "stage1_s", dev):
         sorted_path = eng.sweep_sorted is not None and \
@@ -240,13 +246,17 @@ def _stages(eng: nb.Engine, n: int, min_pts: int, max_rounds: int,
             counts = trace.to_device(precomputed_counts, dev, torch.int32)
         elif sorted_path and eng.sweep_counts is not None:
             counts = _counts_stage1_fn(eng.sweep_counts, eng.state,
-                                       eng.order)
+                                       eng.order, work)
         elif sorted_path:
             counts = _sorted_stage1_fn(eng.sweep_sorted, eng.state,
                                        eng.order)
         else:
             counts = _stage1_fn(eng.sweep, eng.state, n, dev)
         core = counts >= min_pts
+    if work:
+        # read once stage 1 has ended, so stage1_s holds no read
+        timings["stage1_kept_pairs"] = \
+            int(trace.to_host(work["kept_runs"])) * work["pairs_per_run"]
 
     if sorted_path and hook_loop == "frontier" \
             and eng.sweep_frontier is not None:

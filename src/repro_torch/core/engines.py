@@ -87,7 +87,11 @@ class Engine(NamedTuple):
     #                                  (counts, minroot), all in sorted layout
     order: Any = None                # (n,) sorted position -> original index
     timings: dict | None = None      # build-time breakdown, seconds
-    sweep_counts: Callable | None = None  # (state) -> counts, sorted layout
+    sweep_counts: Callable | None = None  # (state, work=None) -> counts,
+    #                                  sorted layout; a sweep that counts
+    #                                  its work puts "kept_runs" (a device
+    #                                  scalar) and "pairs_per_run" in the
+    #                                  dict ``work``
     neighbors: Callable | None = None     # (state, k_max=) -> (idx, counts)
     sweep_frontier: FrontierPlan | None = None  # frontier-compacted stage-2
     #                                  rounds; presence opts dbscan's

@@ -42,6 +42,7 @@ import numpy as np
 import torch
 
 from .. import trace
+from ..kernels import csr_sweep as _csr
 from ..kernels import gathered_sweep as _gathered
 from ..kernels import ops
 from ..kernels import ref as _kref
@@ -164,10 +165,17 @@ def _csr_sweep_fns(spec: grid_mod.CSRGridSpec, eps2: float):
     def sweep_sorted(state: grid_mod.CSRGrid, croot_sorted):
         return _call(state, croot_sorted)
 
-    def sweep_counts(state: grid_mod.CSRGrid):
-        counts_p = ops.csr_sweep_counts(
+    def sweep_counts(state: grid_mod.CSRGrid, work=None):
+        got = ops.csr_sweep_counts(
             state.q_sorted, state.cands, state.starts, state.nblk, eps2,
-            slab=spec.slab, block_q=spec.chunk, block_k=spec.block_k)
+            slab=spec.slab, block_q=spec.chunk, block_k=spec.block_k,
+            with_work=work is not None)
+        if work is None:
+            return got[:n]
+        counts_p, swept = got
+        # a kept run is G candidate columns, each swept by a tile's rows
+        work["kept_runs"] = swept[1]
+        work["pairs_per_run"] = _csr.run_width(spec.block_k) * spec.chunk
         return counts_p[:n]
 
     return sweep, sweep_sorted, sweep_counts

@@ -63,7 +63,11 @@
 //      bound lb <= eps2. Each segment of S = kSegRuns = 32 consecutive runs
 //      (the width of the kept-run bitmask) that keeps one or more runs
 //      becomes a work item (output tile, first run, kept-run bitmask),
-//      appended to a device list with an atomic counter. For
+//      appended to a device list with an atomic counter. A third counter
+//      sums the kept runs (the popcounts of the items' masks), so the host
+//      can learn the pairs a sweep tests, runs x G x block_q; the block
+//      sums its tile's first and adds once, since one add an item would
+//      double the adds on the hot counter line. For
 //      frontier_sweep the output tile is slot i and the query tile is
 //      active[i]: the block reads n_active and active[i] itself, and a
 //      parked slot (i >= n_active, or active[i] outside [0, T)) keeps its
@@ -193,8 +197,9 @@ struct Item {
   unsigned kept;
 };
 
-// counters[0]: items appended; counters[1]: items taken.
-constexpr int kCounters = 2;
+// counters[0]: items appended; counters[1]: items taken; counters[2]:
+// kept runs, summed over the items appended.
+constexpr int kCounters = 3;
 // S: runs per work item, one bit of Item::kept each (kernels/csr_sweep.py's
 // SEG_RUNS sizes the list with it).
 constexpr int kSegRuns = 32;
@@ -274,6 +279,7 @@ __global__ void csr_cull_kernel(const float* __restrict__ queries,
   using O = Out<S>;
   __shared__ float part[6][32];
   __shared__ Box tile_box;
+  __shared__ int tile_kept;
   const int slot = blockIdx.x;
   if (threadIdx.x < block_q) {
     const int64_t row = static_cast<int64_t>(slot) * block_q + threadIdx.x;
@@ -314,9 +320,11 @@ __global__ void csr_cull_kernel(const float* __restrict__ queries,
     hy = has ? part[4][lane] : -INFINITY;
     hz = has ? part[5][lane] : -INFINITY;
     warp_box(lx, ly, lz, hx, hy, hz);
-    if (lane == 0)
+    if (lane == 0) {
       tile_box = Box{make_float4(lx, ly, lz, 0.0f),
                      make_float4(hx, hy, hz, 0.0f)};
+      tile_kept = 0;
+    }
   }
   __syncthreads();
   int sb, nb;
@@ -325,6 +333,7 @@ __global__ void csr_cull_kernel(const float* __restrict__ queries,
   const int first = sb * per_block, n_runs = nb * per_block;
   const int n_segs = (n_runs + kSegRuns - 1) / kSegRuns;
   const Box q = tile_box;
+  int kept_runs = 0;
   for (int s = threadIdx.x; s < n_segs; s += blockDim.x) {
     const int r0 = s * kSegRuns;
     const int m = min(kSegRuns, n_runs - r0);
@@ -333,8 +342,17 @@ __global__ void csr_cull_kernel(const float* __restrict__ queries,
       const Box c = boxes[first + r0 + j];
       if (box_lb(q.lo, q.hi, c.lo, c.hi) <= eps2) kept |= 1u << j;
     }
-    if (kept) items[atomicAdd(&counters[0], 1)] = Item{slot, first + r0, kept};
+    if (kept) {
+      items[atomicAdd(&counters[0], 1)] = Item{slot, first + r0, kept};
+      kept_runs += __popc(kept);
+    }
   }
+  // the tile's kept runs: a sum a warp (every warp is whole), one shared
+  // add a warp, one global add a block
+  kept_runs = __reduce_add_sync(0xffffffffu, kept_runs);
+  if (lane == 0 && kept_runs) atomicAdd(&tile_kept, kept_runs);
+  __syncthreads();
+  if (threadIdx.x == 0 && tile_kept) atomicAdd(&counters[2], tile_kept);
 }
 
 __device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
@@ -509,7 +527,7 @@ extern "C" {
 // Each launch function returns a cudaError_t code: 0 on success. It
 // launches on `stream`, does not synchronise and allocates nothing: the
 // slab sweeps take their scratch (`boxes`: 8 floats a run, `items`: 3 ints
-// an item, `counters`: 2 ints) from the caller.
+// an item, `counters`: 3 ints) from the caller.
 int csr_sweep_launch(int device, const float* queries, const float* cands,
                      const int* croot, const int* starts_blk, const int* nblk,
                      float eps2, int n_tiles, int block_q, int nc,

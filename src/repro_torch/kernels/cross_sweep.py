@@ -31,9 +31,11 @@ from __future__ import annotations
 
 import torch
 
+from .. import trace
 from . import build
 from .csr_sweep import (_check, _cuda_or_raise, _eps2_f32, _scratch,
-                        _sweep_plain)
+                        _sweep_plain, kept_runs_plain, record_work,
+                        run_width, work_plain)
 
 # Launches since the last reset_launches(); the plain version never counts.
 LAUNCHES = {"cross_sweep": 0}
@@ -80,6 +82,11 @@ def cross_sweep(queries, cands_planar, croot, starts_blk, nblk, eps2, *,
     _check(queries, cands_planar, plane, starts_blk, nblk,
            max_blocks=max_blocks, block_q=block_q, block_k=block_k)
     if queries.device.type == "cpu":
+        if trace.is_recording():
+            record_work(work_plain(kept_runs_plain(
+                queries, cands_planar, starts_blk, nblk, eps2,
+                max_blocks=max_blocks, block_k=block_k)),
+                run_width(block_k), block_q)
         return cross_sweep_plain(queries, cands_planar, croot, starts_blk,
                                  nblk, eps2, max_blocks=max_blocks,
                                  block_k=block_k)
@@ -102,4 +109,5 @@ def cross_sweep(queries, cands_planar, croot, starts_blk, nblk, eps2, *,
                  block_q, cands_planar.shape[1], max_blocks, block_k, run,
                  counts, minroot, mind2, boxes, items, counters)
     build.count(LAUNCHES, "cross_sweep")
+    record_work(counters[0::2], run, block_q)
     return counts, minroot, mind2

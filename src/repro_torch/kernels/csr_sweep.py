@@ -5,7 +5,10 @@ array) sweeps the ``nblk[t]`` candidate blocks of ``block_k`` columns that
 start at block ``starts_blk[t]`` of the planar ``(3, nc)`` sorted candidate
 array. ``csr_sweep`` returns per-query counts of candidates with d² ≤ ε² and
 the min of the fused payload ``croot`` over those hits (INT32_MAX when none);
-``csr_sweep_counts`` returns the counts alone (stage 1 discards the payload).
+``csr_sweep_counts`` returns the counts alone (stage 1 discards the payload),
+and with ``with_work`` also the sweep's work: the work items its cull
+appended and the candidate runs it kept, a (2,) int32 tensor on the
+tensors' device that nothing reads until the caller does.
 
 Each function has three parts:
   * the CUDA kernel, ``csrc/csr_sweep.cu``: a box pass over runs of ``G``
@@ -20,8 +23,16 @@ Each function has three parts:
 The kernel's skip has a plain version too (:func:`kept_runs_plain`, with
 :func:`run_boxes_plain`, :func:`tile_boxes_plain` and
 :func:`box_lower_bound`): the same f32 operations in the same order. Tests
-and the smoke run use it; the sweep does not need it, since a skipped run
-holds no hit (``csrc/csr_sweep.cu`` gives the argument).
+and the smoke run use it; the plain sweep does not need it, since a
+skipped run holds no hit (``csrc/csr_sweep.cu`` gives the argument), and
+computes it only for the work counts (:func:`work_plain`): where its
+caller asks for them, and while ``repro_torch.trace`` records.
+
+While ``repro_torch.trace`` records, every slab sweep (this module's two,
+``frontier_sweep`` and ``cross_sweep``) adds its work to the innermost
+span: ``sweep_items``, ``sweep_kept_runs`` and ``sweep_kept_pairs`` (kept
+runs × G × block_q, padding rows included), read from the device when the
+record is taken (:func:`record_work`).
 
 Dispatch is by the tensors' device alone: CPU tensors go to the plain
 version; CUDA tensors launch the kernel or raise. Integer outputs of the two
@@ -34,6 +45,7 @@ import math
 import numpy as np
 import torch
 
+from .. import trace
 from . import build
 from .ref import INT_MAX, _dist2, eps2_tensor
 
@@ -206,10 +218,32 @@ def kept_runs_plain(queries, cands_planar, starts_blk, nblk, eps2, *,
     return live & (lb <= eps2_tensor(eps2, queries.device))
 
 
+def work_plain(kept) -> torch.Tensor:
+    """(2,) int32, the work of a sweep whose kept-run mask (T, R) is
+    ``kept`` (:func:`kept_runs_plain`'s): the work items, one for each
+    segment of SEG_RUNS consecutive runs of a slab that keeps a run, as the
+    kernel's cull appends them, and the kept runs."""
+    T, R = kept.shape
+    pad = -R % SEG_RUNS
+    seg = torch.cat([kept, kept.new_zeros((T, pad))], dim=1).reshape(
+        T, (R + pad) // SEG_RUNS, SEG_RUNS)
+    return torch.stack([seg.any(dim=2).sum(), kept.sum()]).to(torch.int32)
+
+
+def record_work(work, run: int, block_q: int) -> None:
+    """While recording, a slab sweep's ``work`` (items, kept runs) as
+    counters of the innermost span, read when the record is taken."""
+    if not trace.is_recording():
+        return
+    trace.count_later("sweep_items", work[0])
+    trace.count_later("sweep_kept_runs", work[1])
+    trace.count_later("sweep_kept_pairs", work[1], scale=run * block_q)
+
+
 def _scratch(queries, cands_planar, starts_blk, *, max_blocks, block_k):
     """The kernel's scratch: the run width, the run boxes (8 f32 a run),
     the work list (3 int32 an item, room for every segment of every slab)
-    and its two counters."""
+    and its three counters (items appended, items taken, kept runs)."""
     run = run_width(block_k)
     cap = starts_blk.shape[0] * -(-(max_blocks * (block_k // run))
                                   // SEG_RUNS)
@@ -217,7 +251,7 @@ def _scratch(queries, cands_planar, starts_blk, *, max_blocks, block_k):
     boxes = torch.empty(cands_planar.shape[1] // run * 8,
                         dtype=torch.float32, device=dev)
     items = torch.empty(max(cap, 1) * 3, dtype=torch.int32, device=dev)
-    counters = torch.empty(2, dtype=torch.int32, device=dev)
+    counters = torch.empty(3, dtype=torch.int32, device=dev)
     return run, boxes, items, counters
 
 
@@ -243,6 +277,11 @@ def csr_sweep(queries, cands_planar, croot, starts_blk, nblk, eps2, *,
     _check(queries, cands_planar, croot, starts_blk, nblk,
            max_blocks=max_blocks, block_q=block_q, block_k=block_k)
     if queries.device.type == "cpu":
+        if trace.is_recording():
+            record_work(work_plain(kept_runs_plain(
+                queries, cands_planar, starts_blk, nblk, eps2,
+                max_blocks=max_blocks, block_k=block_k)),
+                run_width(block_k), block_q)
         return csr_sweep_plain(queries, cands_planar, croot, starts_blk, nblk,
                                eps2, max_blocks=max_blocks, block_k=block_k)
     _cuda_or_raise(queries, "csr_sweep")
@@ -262,24 +301,38 @@ def csr_sweep(queries, cands_planar, croot, starts_blk, nblk, eps2, *,
                  block_q, cands_planar.shape[1], max_blocks, block_k, run,
                  counts, minroot, boxes, items, counters)
     build.count(LAUNCHES, "csr_sweep")
+    record_work(counters[0::2], run, block_q)
     return counts, minroot
 
 
 def csr_sweep_counts(queries, cands_planar, starts_blk, nblk, eps2, *,
-                     max_blocks: int, block_q: int = 256, block_k: int = 512):
+                     max_blocks: int, block_q: int = 256, block_k: int = 512,
+                     with_work: bool = False):
     """Counts-only slab sweep (stage-1 core identification): the contract of
-    :func:`csr_sweep` without ``croot`` and ``minroot``."""
+    :func:`csr_sweep` without ``croot`` and ``minroot``. With ``with_work``,
+    returns (counts, work): ``work`` (2,) int32 on the tensors' device holds
+    the work items the cull appended and the runs of G candidate columns it
+    kept, each swept by block_q query rows; reading it waits for the
+    sweep."""
     _check(queries, cands_planar, None, starts_blk, nblk,
            max_blocks=max_blocks, block_q=block_q, block_k=block_k)
     if queries.device.type == "cpu":
-        return csr_sweep_counts_plain(queries, cands_planar, starts_blk, nblk,
-                                      eps2, max_blocks=max_blocks,
-                                      block_k=block_k)
+        work = None
+        if with_work or trace.is_recording():
+            work = work_plain(kept_runs_plain(
+                queries, cands_planar, starts_blk, nblk, eps2,
+                max_blocks=max_blocks, block_k=block_k))
+            record_work(work, run_width(block_k), block_q)
+        counts = csr_sweep_counts_plain(queries, cands_planar, starts_blk,
+                                        nblk, eps2, max_blocks=max_blocks,
+                                        block_k=block_k)
+        return (counts, work) if with_work else counts
     _cuda_or_raise(queries, "csr_sweep_counts")
     counts = torch.empty(queries.shape[0], dtype=torch.int32,
                          device=queries.device)
     if starts_blk.shape[0] == 0:
-        return counts
+        work = torch.zeros(2, dtype=torch.int32, device=queries.device)
+        return (counts, work) if with_work else counts
     run, boxes, items, counters = _scratch(
         queries, cands_planar, starts_blk, max_blocks=max_blocks,
         block_k=block_k)
@@ -289,4 +342,6 @@ def csr_sweep_counts(queries, cands_planar, starts_blk, nblk, eps2, *,
                  block_q, cands_planar.shape[1], max_blocks, block_k, run,
                  counts, boxes, items, counters)
     build.count(LAUNCHES, "csr_sweep_counts")
-    return counts
+    work = counters[0::2]
+    record_work(work, run, block_q)
+    return (counts, work) if with_work else counts

@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import trace
 from . import build
 from . import csr_sweep as _csr
 from .csr_sweep import (_check, _cuda_or_raise, _eps2_f32, _scratch,
@@ -114,6 +115,11 @@ def frontier_sweep(queries, cands_planar, croot, starts_blk, nblk, active,
            max_blocks=max_blocks, block_q=block_q, block_k=block_k)
     _check_frontier(queries, active, n_active, T)
     if queries.device.type == "cpu":
+        if trace.is_recording():
+            _csr.record_work(_csr.work_plain(kept_runs_plain(
+                queries, cands_planar, starts_blk, nblk, active, n_active,
+                eps2, max_blocks=max_blocks, block_k=block_k)),
+                _csr.run_width(block_k), block_q)
         return frontier_sweep_plain(queries, cands_planar, croot, starts_blk,
                                     nblk, active, n_active, eps2,
                                     max_blocks=max_blocks, block_k=block_k)
@@ -135,4 +141,5 @@ def frontier_sweep(queries, cands_planar, croot, starts_blk, nblk, active,
                  T, block_q, cands_planar.shape[1], max_blocks, block_k, run,
                  minroot, boxes, items, counters)
     build.count(LAUNCHES, "frontier_sweep")
+    _csr.record_work(counters[0::2], run, block_q)
     return minroot

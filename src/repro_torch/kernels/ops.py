@@ -64,14 +64,17 @@ def csr_sweep(queries, cands_planar, croot, starts, nblk, eps2, *,
 
 
 def csr_sweep_counts(queries, cands_planar, starts, nblk, eps2, *,
-                     slab: int, block_q: int = 256, block_k: int = 512):
+                     slab: int, block_q: int = 256, block_k: int = 512,
+                     with_work: bool = False):
     """Counts-only CSR slab sweep (stage-1 core identification): no
-    ``croot`` input, no ``minroot`` output; counts equal the full sweep's."""
+    ``croot`` input, no ``minroot`` output; counts equal the full sweep's.
+    ``with_work``: also the sweep's (items, kept runs), as
+    ``csr_sweep.csr_sweep_counts`` gives them."""
     q, starts_blk, nblk, max_blocks = _slab_args(
         queries, starts, nblk, slab=slab, block_q=block_q, block_k=block_k)
     return _csr.csr_sweep_counts(q, cands_planar, starts_blk, nblk, eps2,
                                  max_blocks=max_blocks, block_q=block_q,
-                                 block_k=block_k)
+                                 block_k=block_k, with_work=with_work)
 
 
 def frontier_sweep(queries, cands_planar, croot, starts, nblk, active,

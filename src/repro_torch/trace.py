@@ -33,7 +33,14 @@ between the host and another device (0 on a CPU run); ``host_syncs``, each
 point where the host waits for the engine's device (a synchronize, a
 ``torch.equal``, a flag read as a bool, a ``.cpu()``), counted on every
 device alike; ``jump_steps``, each step of ``union_find.pointer_jump``;
-``csr_layouts``, each sort-by-cell pass of the CSR grid (``grid._csr_layout``).
+``csr_layouts``, each sort-by-cell pass of the CSR grid (``grid._csr_layout``);
+``sweep_items``, ``sweep_kept_runs`` and ``sweep_kept_pairs``, each slab
+sweep's work items, kept candidate runs and the pairs those runs hold
+(``kernels/csr_sweep.py`` ``record_work``).
+
+A counter whose value lies on the device (the sweeps' work) is given to
+:func:`count_later` as a tensor: the recorder holds the tensor and reads it
+when the record is taken, so recording adds no wait inside a call.
 """
 from __future__ import annotations
 
@@ -74,7 +81,7 @@ class Recorder:
 
     def __init__(self):
         self._lock = threading.Lock()
-        self._spans, self._counts = [], {}
+        self._spans, self._counts, self._later = [], {}, []
 
     def _add(self, span_id, counts: dict, span_: Span | None = None):
         with self._lock:
@@ -84,11 +91,27 @@ class Recorder:
                 key = (span_id, name)
                 self._counts[key] = self._counts.get(key, 0) + k
 
-    def take(self) -> Record:
+    def _add_later(self, span_id, name: str, value: torch.Tensor,
+                   scale: int):
         with self._lock:
-            rec = Record(self._spans, self._counts)
-            self._spans, self._counts = [], {}
-        return rec
+            self._later.append((span_id, name, value, scale))
+
+    def take(self) -> Record:
+        """What was recorded since the last take; the tensors of
+        :func:`count_later` are read now, one read a device."""
+        with self._lock:
+            spans, counts, later = self._spans, self._counts, self._later
+            self._spans, self._counts, self._later = [], {}, []
+        by_device = {}
+        for entry in later:
+            by_device.setdefault(entry[2].device, []).append(entry)
+        for entries in by_device.values():
+            values = torch.stack([v.reshape(())
+                                  for _, _, v, _ in entries]).tolist()
+            for (span_id, name, _, scale), v in zip(entries, values):
+                key = (span_id, name)
+                counts[key] = counts.get(key, 0) + v * scale
+        return Record(spans, counts)
 
 
 def _stack() -> list:
@@ -147,6 +170,21 @@ def count(name: str, k: int = 1) -> None:
         counts[name] = counts.get(name, 0) + k
     else:
         _recorder._add(None, {name: k})
+
+
+def count_later(name: str, value: torch.Tensor, scale: int = 1) -> None:
+    """Add ``scale`` times the one integer in ``value`` to counter ``name``
+    of the innermost open span, while recording is on. ``value`` may lie
+    on a device: it is held, not read, until the record is taken."""
+    if not _on:
+        return
+    stack = getattr(_local, "stack", None)
+    _recorder._add_later(stack[-1].id if stack else None, name, value, scale)
+
+
+def is_recording() -> bool:
+    """Whether spans and counters are recorded now."""
+    return _on
 
 
 @contextlib.contextmanager

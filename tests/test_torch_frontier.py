@@ -59,7 +59,8 @@ def test_frontier_driver_matches_reference(name, pts, eps, minpts):
     for f in ("labels", "core", "counts"):
         assert torch.equal(getattr(dev, f), getattr(port, f)), f
     assert dev.n_rounds == port.n_rounds
-    assert set(port.timings) == {"stage1_s", "stage2_s", "border_s"}
+    assert set(port.timings) == {"stage1_s", "stage2_s", "border_s",
+                                 "stage1_kept_pairs"}
 
 
 def test_frontier_compacts_deep_clump_and_parks_all_noise():

@@ -258,8 +258,14 @@ def test_dbscan_records_a_round_span_each_round(name, make, eps, min_pts,
         np.testing.assert_array_equal(getattr(on, f).numpy(),
                                       getattr(off, f).numpy(), err_msg=f)
     assert on.n_rounds == off.n_rounds >= 1
-    assert set(on.timings) == set(off.timings) == {"stage1_s", "stage2_s",
-                                                    "border_s"}
+    # the grid's counts-only sweep (sorted drivers) reports its kept pairs,
+    # read once after stage 1: one more host sync
+    kept = hook_loop != "host"
+    assert set(on.timings) == set(off.timings) == {
+        "stage1_s", "stage2_s", "border_s"} | ({"stage1_kept_pairs"}
+                                               if kept else set())
+    assert on.timings.get("stage1_kept_pairs") == \
+        off.timings.get("stage1_kept_pairs")
 
     top = _one(got, "dbscan")
     assert top.parent is None
@@ -274,7 +280,8 @@ def test_dbscan_records_a_round_span_each_round(name, make, eps, min_pts,
     # every torch.equal is one step of pointer_jump or _hook_step's check
     jumps = trace.total(got, "jump_steps")
     assert jumps == calls["equal"] - on.n_rounds
-    assert trace.total(got, "host_syncs") == calls["equal"] + calls["sync"]
+    assert trace.total(got, "host_syncs") == calls["equal"] + calls["sync"] \
+        + kept
     assert calls["sync"] == 3               # stage 1, stage 2, the border
     # a round: two jumps and the check; then the synchronize, and in the
     # sorted drivers one more jump
@@ -411,8 +418,9 @@ def card():
     ("roadnet2d", 434_874, 0.02, 4.98), ("iono3d", 1_000_000, 2.0, 11.44)])
 def test_a_cluster_call_copies_the_points_once_and_the_plans_scalars(
         card, dataset, n, eps, mib):
-    """Points to the card once (n × 12 B); back to the host only the plan's
-    scalars: the (2, 3) f32 bounds and the int32 worst tile extent."""
+    """Points to the card once (n × 12 B); back to the host only scalars:
+    the plan's (2, 3) f32 bounds and int32 worst tile extent, and stage
+    1's int32 kept-run count."""
     pts = synth.load(dataset, n, seed=0)
     make_engine(pts, eps, device=card)              # build the kernels
     with trace.recording() as rec:
@@ -420,7 +428,7 @@ def test_a_cluster_call_copies_the_points_once_and_the_plans_scalars(
         res = dbscan(pts, eps, 8, eng=eng)
         got = rec.take()
     assert trace.total(got, "h2d_bytes") == n * 12
-    assert trace.total(got, "d2h_bytes") == 2 * 3 * 4 + 4
+    assert trace.total(got, "d2h_bytes") == 2 * 3 * 4 + 4 + 4
     moved = trace.total(got, "h2d_bytes") + trace.total(got, "d2h_bytes")
     assert abs(moved / 2**20 - mib) < 0.01
     assert trace.total(got, "h2d_bytes", under="dbscan") == 0

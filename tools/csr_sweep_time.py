@@ -59,7 +59,8 @@ def launch_at(torch, build, csr, run, q, cands, croot, st, nblk, eps2, *,
     cap = T * -(-(max_blocks * (block_k // run)) // csr.SEG_RUNS)
     boxes = torch.empty(nc // run * 8, dtype=torch.float32, device=dev)
     items = torch.empty(max(cap, 1) * 3, dtype=torch.int32, device=dev)
-    counters = torch.empty(2, dtype=torch.int32, device=dev)
+    # kCounters ints: three, where older trees' kernels use two
+    counters = torch.empty(3, dtype=torch.int32, device=dev)
     counts = torch.empty(q.shape[0], dtype=torch.int32, device=dev)
     head = (T, block_q, nc, max_blocks, block_k, run)
     if croot is None:

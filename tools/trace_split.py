@@ -18,7 +18,9 @@ sets up a cell of ``portbench/`` as its harness does: the pool from
    plan's two reads, ``plan.bounds`` and ``plan.need``, are left out, since
    there the host waits on the card), ``copy_mib`` (``h2d_bytes`` +
    ``d2h_bytes``, in MiB), ``stage2_syncs`` (``host_syncs`` inside
-   ``stage2``), ``host_syncs``, ``jump_steps`` and each span's host ms.
+   ``stage2``), ``host_syncs``, ``jump_steps``, ``kept_gpairs`` (the pairs
+   the call's slab sweeps tested, ``sweep_kept_pairs``, in 10^9; absent
+   where ``DIR``'s sweeps count none) and each span's host ms.
    The device's busy and window seconds and idle share are
    ``portbench.devtrace.summarize``'s, the benchmark's own; the idle time is
    then named by the innermost span around each gap (:func:`name_gaps`):
@@ -127,6 +129,8 @@ def _call_row(got, record, trace):
     row["stage2_syncs"] = trace.total(record, "host_syncs", under="stage2")
     row["host_syncs"] = trace.total(record, "host_syncs")
     row["jump_steps"] = trace.total(record, "jump_steps")
+    if any(c == "sweep_kept_pairs" for _, c in record.counts):
+        row["kept_gpairs"] = trace.total(record, "sweep_kept_pairs") / 1e9
     return row
 
 
@@ -141,7 +145,7 @@ def _summary(rows):
     out["stage2_ms"] = 1e3 * _mean(r["timings"]["stage2_s"] for r in rows)
     out["hook_rounds"] = _mean(r["n_rounds"] for r in rows)
     for key in ("plan_host_ms", "copy_mib", "stage2_syncs", "host_syncs",
-                "jump_steps"):
+                "jump_steps", "kept_gpairs"):
         vals = [r[key] for r in rows if r.get(key) is not None]
         if vals:
             out[key] = _mean(vals)
