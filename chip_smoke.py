@@ -28,7 +28,12 @@ Phases:
   2. build: every kernel source in src/repro_torch/csrc, one nvcc each,
      started together;
   3. kernel parity, each kernel against its plain PyTorch version on the
-     card, integer outputs bit-identical: the reference's ragged shape
+     card, integer outputs bit-identical: window_bounds on edge layouts
+     (cells at 0 and 2^bits - 2, pads at 2^bits - 1, a 2-D z that is not
+     0, empty windows, one code, no corpus) and on the plan's own layout
+     inputs of roadnet2d 435,000, iono3d 1,000,000 and taxi2d 2,000,000
+     (Porto's stand-in), one launch and no host sync a call; the
+     reference's ragged shape
      sweeps, pairs at exactly d² = ε² (and the float below), tiles with
      nblk = 0, frontier slots with n_active = 0, 1 and T under the park
      contract, windows with invalid and duplicate-masked cells; for the
@@ -151,7 +156,7 @@ Phases:
      bit-identical again; a hedged leg on shard 0 (its primary suspect)
      with the bits of an unhedged one; each step's host seconds, the legs
      per query and the phase's launches by kernel (exactly the serve
-     path's four kernels);
+     path's five kernels);
   5b. the paper's fig. 4 systems at benchmarks/figures.py:57's full size
      (roadnet2d 16,384, minPts 8, ε 0.01, 0.02, 0.04): DClust, grid,
      FDBSCAN, G-DBSCAN and brute, each launching exactly its kernels
@@ -178,7 +183,9 @@ Phases:
      NCCL process group) against one thread rank;
   6. kernel times at the full-size shapes of each kernel's path (median of
      5 launches, CUDA events), beside the plain version's time and the
-     least time the card could take (bound; for the four slab sweeps that
+     least time the card could take (bound; for window_bounds its query
+     rows' 20 B and the corpus codes' 4 B each, at the three layouts of
+     phase 3, the grid/device run one launch; for the four slab sweeps that
      skip runs at the pair tests of the runs their skip keeps, with the
      slab's pair tests, the kept ones and their share printed, and beside
      them the kept pairs' time at the unfused FP32 issue rate; for the csr
@@ -280,9 +287,10 @@ BVH_KERNELS = LBVH_BUILD + ("bvh_level",)
 STACK_KERNELS = LBVH_BUILD + ("lbvh_depth",)
 PATHS = {
     "grid/device": (dict(engine="grid", hook_loop="device"),
-                    ("csr_sweep_counts", "csr_sweep")),
+                    ("window_bounds", "csr_sweep_counts", "csr_sweep")),
     "grid/frontier": (dict(engine="grid", hook_loop="frontier"),
-                      ("csr_sweep_counts", "frontier_sweep")),
+                      ("window_bounds", "csr_sweep_counts",
+                       "frontier_sweep")),
     "grid-hash": (dict(engine="grid-hash"), ("hash_sweep",)),
     "brute": (dict(engine="brute"), ("pairwise_sweep",)),
     "bvh/device": (dict(engine="bvh", hook_loop="device"), BVH_KERNELS),
@@ -296,11 +304,12 @@ LEVEL_REPS = 5              # exact sweeps timed per level (median)
 # (skewed2d: one dense blob beside a sparse field)
 REDUCED_FUSED = [("roadnet2d", 20_000, 0.02, 2), ("iono3d", 20_000, 4.0, 3),
                  ("skewed2d", 20_000, 0.02, 2)]
-# serving: build_snapshot (csr_sweep_counts, frontier_sweep), assign
-# (cross_sweep), ingest (cross_sweep, pairwise_sweep), compaction (a
+# serving: build_snapshot (window_bounds, csr_sweep_counts,
+# frontier_sweep), assign (window_bounds, cross_sweep), ingest
+# (window_bounds, cross_sweep, pairwise_sweep), compaction (a
 # build_snapshot)
-SERVE_KERNELS = ("csr_sweep_counts", "frontier_sweep", "cross_sweep",
-                 "pairwise_sweep")
+SERVE_KERNELS = ("window_bounds", "csr_sweep_counts", "frontier_sweep",
+                 "cross_sweep", "pairwise_sweep")
 ASSIGN_Q = 32_768     # fresh points per assign at full size (largest bucket)
 INGEST_CHUNK = 2_048  # points per ingest at full size
 DELTA_CAP = 16_384    # the session's delta_capacity at full size
@@ -314,8 +323,8 @@ TIER_DOWN = 1
 # the paper's fig. 4 (benchmarks/figures.py:57 at its full size): one
 # dataset and n, an ε sweep, the systems and the kernels each launches
 FIG4 = ("roadnet2d", 16_384, 8, (0.01, 0.02, 0.04))
-FIG4_SYSTEMS = {"dclust": ("csr_sweep",),
-                "grid": ("csr_sweep_counts", "csr_sweep"),
+FIG4_SYSTEMS = {"dclust": ("window_bounds", "csr_sweep"),
+                "grid": ("window_bounds", "csr_sweep_counts", "csr_sweep"),
                 "fdbscan": STACK_KERNELS, "gdbscan": (),
                 "brute": ("pairwise_sweep",)}
 KERNELS = {  # name: (source, the TPU kernel it replaces)
@@ -342,7 +351,14 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
                    "src/repro/core/bvh.py:196"),
     "bvh_level": ("src/repro_torch/csrc/bvh_sweep.cu",
                   "src/repro/kernels/bvh_sweep.py:79"),
+    "window_bounds": ("src/repro_torch/csrc/csr_layout.cu",
+                      "src/repro/core/grid.py:219"),
 }
+# the CSR layouts whose window bounds are held to the plain version and
+# timed: the full-size datasets and the 2M taxi2d stand-in for Porto, each
+# at its benchmark's ε (dataset, n, ε)
+WINDOW_LAYOUTS = [(name, n, eps) for name, n, eps, _ in FULL] + \
+    [("taxi2d", 2_000_000, 0.01)]
 # the kernels that the redesigned rows 6, 7 and 8 replaced on every path,
 # with their sources; their parity phases and times stay, as each new
 # kernel's A side
@@ -370,7 +386,8 @@ DIST_REDUCED = ("iono3d", 20_000, 4.0, 16)
 DIST_CPU_THREADS = 2   # torch threads of each CPU rank thread
 DIST_REGROWS = 6
 DIST_SUBSET = 65_536   # queries of a full-size hash_sweep held to plain
-DIST_KERNELS = {"grid": ("hash_sweep",), "csr": ("csr_sweep",),
+DIST_KERNELS = {"grid": ("hash_sweep",),
+                "csr": ("window_bounds", "csr_sweep"),
                 "bvh": BVH_KERNELS, "brute": ("pairwise_sweep",)}
 DIST_STEPS = ("cuts", "all_to_all", "halo", "local_build", "stage1",
               "components", "label_rounds", "border", "return")
@@ -458,9 +475,10 @@ class Env:
         from repro_torch.core import bvh, grid, labels, neighbors
         from repro_torch.distributed import comm, dbscan_dist
         from repro_torch.kernels import (build, bvh_sweep, cross_sweep,
-                                         csr_sweep, frontier_sweep,
-                                         gathered_sweep, lbvh, morton, ops,
-                                         pairwise_sweep, ref)
+                                         csr_layout, csr_sweep,
+                                         frontier_sweep, gathered_sweep,
+                                         lbvh, morton, ops, pairwise_sweep,
+                                         ref)
         from repro_torch import configs as lmc
         from repro_torch.data import pipeline
         from repro_torch.distributed import checkpoint as ckpt
@@ -487,8 +505,10 @@ class Env:
         self.opt, self.trainer = opt, trainer
         self.pipeline, self.ckpt = pipeline, ckpt
         self.bvhk, self.morton, self.lbvh = bvh_sweep, morton, lbvh
+        self.layout = csr_layout
         self.modules = (csr_sweep, frontier_sweep, pairwise_sweep,
-                        gathered_sweep, cross_sweep, morton, bvh_sweep, lbvh)
+                        gathered_sweep, cross_sweep, morton, bvh_sweep, lbvh,
+                        csr_layout)
         self.dev = torch.device("cuda")
 
     def reset_launches(self) -> None:
@@ -1559,7 +1579,91 @@ def road_layouts(E):
     return road
 
 
+def window_edge_cases(E, dims):
+    """(sorted_codes, cells) of small layouts at the edges of the window
+    bounds' contract: cells at 0, 1, 2^bits - 3 and 2^bits - 2, padding
+    rows at 2^bits - 1 in the corpus and the queries, in 2-D a z column
+    that is not 0, queries whose windows hold no corpus cell, a corpus of
+    one code, and no corpus."""
+    t = E.torch
+    bits = 15 if dims == 2 else 10
+    cap = (1 << bits) - 2
+    rng = np.random.default_rng(dims)
+
+    def cells(m, lo, hi):
+        c = rng.integers(lo, hi + 1, (m, 3)).astype(np.int32)
+        if dims == 2:
+            c[:, 2] = rng.integers(-(1 << 30), 1 << 30, m)
+        return c
+
+    def codes(c):
+        c = t.as_tensor(c, device=E.dev)
+        return t.sort(E.ref.morton_encode_ref(c, dims=dims))[0]
+    pad = np.full((64, 3), cap + 1, np.int32)
+    edge = np.concatenate([cells(500, 0, 1), cells(500, cap - 1, cap), pad])
+    q = np.concatenate([edge, cells(300, 0, cap), cells(40, 100, 120)])
+    cases = {
+        "edges and pads": (codes(edge), q),
+        "empty windows": (codes(cells(200, 0, 10)), cells(100, 50, 90)),
+        "one code": (codes(np.repeat(cells(1, 40, 40), 64, axis=0)),
+                     np.concatenate([cells(50, 38, 42), cells(20, 0, cap)])),
+        "no corpus": (t.zeros(0, dtype=t.int32, device=E.dev), q),
+    }
+    return {k: (c, t.as_tensor(q, device=E.dev)) for k, (c, q) in
+            cases.items()}, bits
+
+
+def parity_window_bounds(E):
+    """window_bounds against window_bounds_plain, bit for bit: on the edge
+    layouts of both dims, and on the layout inputs of WINDOW_LAYOUTS (the
+    plan's one call, recorded; kept in ``E.window_layouts`` for phase 6),
+    one call at full size under torch.cuda.set_sync_debug_mode("error")
+    and counted as one launch."""
+    t, L = E.torch, E.layout
+    for dims in (2, 3):
+        cases, bits = window_edge_cases(E, dims)
+        for what, (codes, q) in cases.items():
+            same_pair(E, f"window_bounds {dims}-D {what}",
+                      L.window_bounds(codes, q, dims, bits),
+                      L.window_bounds_plain(codes, q, dims, bits))
+    E.window_layouts = {}
+    for name, n, eps in WINDOW_LAYOUTS:
+        pts = t.as_tensor(E.repro_torch.synth.load(name, n, seed=0),
+                          device=E.dev)
+        with CallRecorder(L, "window_bounds") as rec:
+            E.grid.plan_and_build_csr_grid(pts, eps)
+        check(len(rec.calls) == 1, f"window_bounds @ {name}: "
+              f"{len(rec.calls)} calls in one plan, expected 1")
+        args = rec.calls[0][0]
+        E.window_layouts[name] = args
+        L.reset_launches()
+        t.cuda.synchronize()
+        t.cuda.set_sync_debug_mode("error")
+        try:
+            got = L.window_bounds(*args)
+        finally:
+            t.cuda.set_sync_debug_mode(0)
+        check(L.LAUNCHES["window_bounds"] == 1,
+              f"window_bounds @ {name}: {L.LAUNCHES} launches in one call")
+        same_pair(E, f"window_bounds @ {name}", got,
+                  L.window_bounds_plain(*args))
+        codes, cells, dims, bits = args
+        log(f"  window_bounds @ {name} n={n}: {cells.shape[0]} query cells "
+            f"against {codes.shape[0]} codes ({dims}-D, {bits} bits), lo and "
+            "hi bit-identical to the plain loop; one launch, no host sync")
+    log("  window_bounds: edge layouts (cells at 0 and 2^bits - 2, pads at "
+        "2^bits - 1, 2-D z not 0, empty windows, one code, no corpus) "
+        "bit-identical, 2-D and 3-D")
+
+
+def same_pair(E, what: str, k, p) -> None:
+    """``same`` on lo and hi."""
+    same(E, f"{what} lo", k[0], p[0])
+    same(E, f"{what} hi", k[1], p[1])
+
+
 def phase_parity(E):
+    parity_window_bounds(E)
     road = road_layouts(E)
     parity_csr(E, road)
     parity_frontier(E, road)
@@ -3435,10 +3539,33 @@ def times_bvh_level(E, name, run):
                run_parents=sum(p["entries"] for p in per), previous=prev)
 
 
+def times_window_bounds(E, name, launches):
+    """window_bounds on the layout inputs parity_window_bounds recorded,
+    beside its plain loop there; bound: a query row's cell in and its lo
+    and hi out (20 B), the sorted codes read once (4 B each)."""
+    L = E.layout
+    codes, cells, dims, bits = E.window_layouts[name]
+    m, n = cells.shape[0], codes.shape[0]
+    ms = cuda_ms(E, lambda: L.window_bounds(codes, cells, dims, bits))
+    plain_ms = statistics.median(
+        timed_once(E, lambda: L.window_bounds_plain(codes, cells, dims,
+                                                    bits))[0]
+        for _ in range(3))
+    err = max_err(L.window_bounds(codes, cells, dims, bits),
+                  L.window_bounds_plain(codes, cells, dims, bits))
+    return row("window_bounds", launches, ms, plain_ms,
+               bound(0, m * 20 + n * 4), err, plain_shapes="full",
+               queries=m, points=n, dims=dims)
+
+
 def phase_times(E, runs):
     E.runs = runs
     per = {k: {} for k in KERNELS}
     for name, r in runs.items():
+        check(r["grid/device"]["launches"]["window_bounds"] == 1,
+              f"{name} grid/device: "
+              f"{r['grid/device']['launches']['window_bounds']} "
+              "window_bounds launches, expected one (one layout a build)")
         per_ds = times_csr(E, name, r["grid/device"])
         per_ds["frontier_sweep"] = times_frontier(E, name, r["grid/frontier"])
         per_ds["pairwise_sweep"] = times_pairwise(E, name, r["brute"])
@@ -3447,6 +3574,8 @@ def phase_times(E, runs):
         per_ds["cross_sweep"] = times_cross(E, name, r["serve"])
         per_ds.update(times_lbvh(E, name, r["bvh/device"], r["bvh-stack"]))
         per_ds["bvh_level"] = times_bvh_level(E, name, r["bvh/device"])
+        per_ds["window_bounds"] = times_window_bounds(
+            E, name, r["grid/device"]["launches"]["window_bounds"])
         for kname, d in per_ds.items():
             # launches: every counted path run of this dataset
             by_path = {p: pr["launches"][kname] for p, pr in r.items()
@@ -3514,6 +3643,17 @@ def phase_times(E, runs):
             + "; launches by path " + json.dumps(
                 {k: per_ds[k]["launches_by_path"] for k in
                  ("lbvh_keys", "lbvh_depth")}))
+    for name, n, _ in WINDOW_LAYOUTS:
+        if name in runs:
+            continue
+        # a layout no path of this run builds: its parity and times only
+        d = times_window_bounds(E, name, 0)
+        d["launches_by_path"] = {}
+        per["window_bounds"][name] = d
+        log(f"  window_bounds @ {name}: {d['ms']:.3f} ms (bound "
+            f"{d['bound_ms']:.3f} ms by {d['bound_by']}, "
+            f"{d['bound_ms'] / d['ms']:.1%} of bound; plain "
+            f"{d['plain_ms']:.1f} ms on full shapes)")
     return per
 
 

@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from .. import trace
+from ..kernels import ops
 from ..kernels import ref as _kref
 from .engines import resolve_device
 
@@ -251,29 +252,10 @@ def csr_cells(points: torch.Tensor, side, origin, dims: int,
 def _csr_window_bounds(sorted_codes, cells, dims: int, bits: int):
     """Per query cell: [lo, hi) positions in the code-sorted corpus covering
     the occupied runs of all 9/27 window cells. Empty window cells are
-    excluded (their insertion point would needlessly widen the slab)."""
-    n = sorted_codes.shape[0]
-    m = cells.shape[0]
-    dev = cells.device
-    rng = (-1, 0, 1)
-    offs = [(dx, dy, dz) for dx in rng for dy in rng
-            for dz in (rng if dims == 3 else (0,))]
-    lo = torch.full((m,), n, dtype=torch.int32, device=dev)
-    hi = torch.zeros((m,), dtype=torch.int32, device=dev)
-    cell_cap = (1 << bits) - 2
-    for off in offs:
-        nb = torch.clamp(cells + torch.tensor(off, dtype=torch.int32,
-                                              device=dev), 0, cell_cap)
-        if dims == 2:
-            nb[:, 2] = 0
-        code = _kref.morton_encode_ref(nb, dims=dims)
-        left = torch.searchsorted(sorted_codes, code, out_int32=True)
-        right = torch.searchsorted(sorted_codes, code, out_int32=True,
-                                   right=True)
-        occupied = right > left
-        lo = torch.minimum(lo, torch.where(occupied, left, n))
-        hi = torch.maximum(hi, torch.where(occupied, right, 0))
-    return lo, hi
+    excluded (their insertion point would needlessly widen the slab). One
+    kernel launch on the card (``kernels/csr_layout.py``); the reference's
+    loop over the offsets on the CPU."""
+    return ops.window_bounds(sorted_codes, cells, dims=dims, bits=bits)
 
 
 def _csr_layout(points, side: float, origin: tuple, dims: int, bits: int):

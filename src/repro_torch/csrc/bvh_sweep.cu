@@ -324,24 +324,6 @@ __global__ void __launch_bounds__(kThreads) bvh_level_kernel(
   }
 }
 
-__device__ __forceinline__ uint32_t expand3(uint32_t x) {  // 10 -> 30 bits
-  x &= 0x3FFu;
-  x = (x | (x << 16)) & 0x030000FFu;
-  x = (x | (x << 8)) & 0x0300F00Fu;
-  x = (x | (x << 4)) & 0x030C30C3u;
-  x = (x | (x << 2)) & 0x09249249u;
-  return x;
-}
-
-__device__ __forceinline__ uint32_t expand2(uint32_t x) {  // 15 -> 30 bits
-  x &= 0x7FFFu;
-  x = (x | (x << 8)) & 0x00FF00FFu;
-  x = (x | (x << 4)) & 0x0F0F0F0Fu;
-  x = (x | (x << 2)) & 0x33333333u;
-  x = (x | (x << 1)) & 0x55555555u;
-  return x;
-}
-
 template <bool k2d>
 __global__ void morton_encode_kernel(const int* __restrict__ coords, int n,
                                      int* __restrict__ codes) {
@@ -351,10 +333,10 @@ __global__ void morton_encode_kernel(const int* __restrict__ coords, int n,
   const uint32_t y = static_cast<uint32_t>(coords[i * 3 + 1]);
   uint32_t code;
   if (k2d) {
-    code = expand2(x) | (expand2(y) << 1);
+    code = repro::morton2(x, y);
   } else {
     const uint32_t z = static_cast<uint32_t>(coords[i * 3 + 2]);
-    code = expand3(x) | (expand3(y) << 1) | (expand3(z) << 2);
+    code = repro::morton3(x, y, z);
   }
   codes[i] = static_cast<int>(code);
 }

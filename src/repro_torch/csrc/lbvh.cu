@@ -76,24 +76,6 @@ namespace {
 
 constexpr int kThreads = 256;
 
-__device__ __forceinline__ uint32_t expand3(uint32_t x) {  // 10 -> 30 bits
-  x &= 0x3FFu;
-  x = (x | (x << 16)) & 0x030000FFu;
-  x = (x | (x << 8)) & 0x0300F00Fu;
-  x = (x | (x << 4)) & 0x030C30C3u;
-  x = (x | (x << 2)) & 0x09249249u;
-  return x;
-}
-
-__device__ __forceinline__ uint32_t expand2(uint32_t x) {  // 15 -> 30 bits
-  x &= 0x7FFFu;
-  x = (x | (x << 8)) & 0x00FF00FFu;
-  x = (x | (x << 4)) & 0x0F0F0F0Fu;
-  x = (x | (x << 2)) & 0x33333333u;
-  x = (x | (x << 1)) & 0x55555555u;
-  return x;
-}
-
 template <bool k2d>
 __global__ void __launch_bounds__(kThreads) lbvh_keys_kernel(
     const float* __restrict__ pts, int n, int cols,
@@ -110,9 +92,8 @@ __global__ void __launch_bounds__(kThreads) lbvh_keys_kernel(
     v = fminf(fmaxf(v, 0.0f), 1023.0f);
     q[k] = static_cast<uint32_t>(__float2int_rz(v));
   }
-  const uint32_t code = k2d ? expand2(q[0]) | (expand2(q[1]) << 1)
-                            : expand3(q[0]) | (expand3(q[1]) << 1) |
-                                  (expand3(q[2]) << 2);
+  const uint32_t code = k2d ? repro::morton2(q[0], q[1])
+                            : repro::morton3(q[0], q[1], q[2]);
   codes[i] = static_cast<int>(code);
 }
 

@@ -1,5 +1,5 @@
-"""Public wrappers for the sweep kernels, the Morton codes and the LBVH
-build.
+"""Public wrappers for the sweep kernels, the Morton codes, the LBVH
+build and the CSR layout's window bounds.
 
 They keep the reference's signatures and conventions (``starts`` in
 elements, a static ``slab`` capacity, padding with +BIG coordinates and an
@@ -15,6 +15,7 @@ import torch
 
 from . import bvh_sweep as _bvh
 from . import cross_sweep as _cross
+from . import csr_layout as _layout
 from . import csr_sweep as _csr
 from . import frontier_sweep as _frontier
 from . import gathered_sweep as _gathered
@@ -235,3 +236,12 @@ def lbvh_depth(left, right):
     """The depth of a Karras tree's deepest leaf, as a (1,) int32 tensor."""
     return _lbvh.lbvh_depth(left.to(torch.int32).contiguous(),
                             right.to(torch.int32).contiguous())
+
+
+def window_bounds(sorted_codes, cells, *, dims: int, bits: int):
+    """Per query cell (m, 3) int32: the [lo, hi) positions (m,) int32 of the
+    code-sorted corpus (n,) int32 that cover its 9 (``dims == 2``) or 27
+    window cells' occupied runs, (n, 0) where none is occupied."""
+    return _layout.window_bounds(sorted_codes.to(torch.int32).contiguous(),
+                                 cells.to(torch.int32).contiguous(), dims,
+                                 bits)

@@ -34,6 +34,8 @@ point where the host waits for the engine's device (a synchronize, a
 ``torch.equal``, a flag read as a bool, a ``.cpu()``), counted on every
 device alike; ``jump_steps``, each step of ``union_find.pointer_jump``;
 ``csr_layouts``, each sort-by-cell pass of the CSR grid (``grid._csr_layout``);
+``window_bounds_launches``, each launch of the window-bounds kernel
+(``kernels/csr_layout.py``: one a layout on the card, none on the CPU);
 ``sweep_items``, ``sweep_kept_runs`` and ``sweep_kept_pairs``, each slab
 sweep's work items, kept candidate runs and the pairs those runs hold
 (``kernels/csr_sweep.py`` ``record_work``).

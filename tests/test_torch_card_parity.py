@@ -50,6 +50,7 @@ from repro_torch.data import synth
 from repro_torch.kernels import build as tbuild
 from repro_torch.kernels import bvh_sweep as tsweep
 from repro_torch.kernels import cross_sweep as tcross
+from repro_torch.kernels import csr_layout as tlayout
 from repro_torch.kernels import csr_sweep as tcsr
 from repro_torch.kernels import frontier_sweep as tfrontier
 from repro_torch.kernels import gathered_sweep as tgathered
@@ -489,7 +490,8 @@ def _dist_local(engine, cand, eps, p_own, croot, device):
     return [x.cpu() for x in (*sweep_all(r), *sweep_own(r))] + [bool(ovf)]
 
 
-DIST_KERNELS = {"grid": ("hash_sweep",), "csr": ("csr_sweep",),
+DIST_KERNELS = {"grid": ("hash_sweep",),
+                "csr": ("window_bounds", "csr_sweep"),
                 "bvh": ("lbvh_keys", "lbvh_nodes", "lbvh_refit",
                         "bvh_level"),
                 "brute": ("pairwise_sweep",)}
@@ -507,7 +509,7 @@ def test_distributed_local_engine_on_the_card_is_its_plain_run(
     croot = np.where(real & (rng.uniform(size=len(real)) < 0.5),
                      rng.integers(0, len(real), len(real)),
                      INT_MAX).astype(np.int32)
-    mods = (tcsr, tpairwise, tgathered, tlbvh, tsweep)
+    mods = (tlayout, tcsr, tpairwise, tgathered, tlbvh, tsweep)
     for m in mods:
         m.reset_launches()
     k = _dist_local(engine, cand, eps, p_own, croot, card)

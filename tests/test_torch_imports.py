@@ -178,8 +178,8 @@ def test_lm_entry_points_raise_without_cuda(monkeypatch):
 def test_kernel_build_is_keyed_and_raises_without_nvcc(monkeypatch,
                                                        tmp_path):
     from repro_torch.kernels import build
-    assert build.sources() == ["bvh_sweep", "csr_sweep", "gathered_sweep",
-                               "lbvh"]
+    assert build.sources() == ["bvh_sweep", "csr_layout", "csr_sweep",
+                               "gathered_sweep", "lbvh"]
     path = build.library_path("csr_sweep")
     assert path.parent == build.BUILD_DIR and path.suffix == ".so"
     monkeypatch.setattr(build, "NVCC_FLAGS", build.NVCC_FLAGS + ("-g",))

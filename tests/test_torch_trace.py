@@ -334,6 +334,8 @@ def test_one_csr_layout_a_build_and_none_in_dbscan(reuse):
     assert trace.total(got, "csr_layouts") == 1
     assert trace.total(got, "csr_layouts", under="engine.build") == 1
     assert trace.total(got, "csr_layouts", under="dbscan") == 0
+    # the plain loop on the CPU: a layout, and no window-bounds launch
+    assert trace.total(got, "window_bounds_launches") == 0
     build = _one(got, "engine.build")
     if reuse:
         assert _names(got, build.id) == ["build.layout", "build.slabs",
@@ -433,4 +435,7 @@ def test_a_cluster_call_copies_the_points_once_and_the_plans_scalars(
     assert abs(moved / 2**20 - mib) < 0.01
     assert trace.total(got, "h2d_bytes", under="dbscan") == 0
     assert trace.total(got, "csr_layouts") == 1
+    assert trace.total(got, "window_bounds_launches") == 1
+    assert trace.total(got, "window_bounds_launches",
+                       under="plan.layout") == 1
     assert sum(s.name == "stage2.round" for s in got.spans) == res.n_rounds
