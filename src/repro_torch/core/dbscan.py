@@ -22,8 +22,10 @@ each round for engines advertising ``sweep_frontier`` (bit-identical labels
 and round count; the cost of rounds 2..k tracks the merge frontier).
 ``hook_loop="host"`` runs the generic per-round loop over the original
 order, as do the other two for engines without the capability they need.
-All are Python loops with one host check per round, capped at
-``max_rounds``; labels and round counts equal the JAX reference's.
+All run one loop, :func:`hook_rounds`, with their own sweep, as do
+serving's ingest and each distributed rank: one host check per round,
+capped at ``max_rounds``; labels and round counts equal the JAX
+reference's.
 
 Labels are component-min core indices; ``labels.compact_labels`` maps them
 to 0..k−1 for reporting.
@@ -57,8 +59,8 @@ class DBSCANResult(NamedTuple):
 
 
 def _hook_step(root, m, core):
-    """One stage-2 hooking step (shared by all round drivers): hook each
-    core root onto the min core-neighbor root and recompress."""
+    """One stage-2 hooking step (of :func:`hook_rounds`): hook each core
+    root onto the min core-neighbor root and recompress."""
     tgt = torch.minimum(m, root)             # m includes own root for core pts
     p2 = hook_min(root, root, tgt, valid=core)
     p2 = pointer_jump(p2)
@@ -66,24 +68,28 @@ def _hook_step(root, m, core):
     return p2, not torch.equal(p2, root)
 
 
+def hook_rounds(core, sweep_min, max_rounds: int):
+    """Stage 2's rounds from the identity forest, each in a
+    ``stage2.round`` span: jump to the roots, ``sweep_min(root)`` (each
+    point's min core-neighbor root), :func:`_hook_step` (looked up when the
+    loop runs, so a patch of it reaches every caller), until a round
+    changes nothing or ``max_rounds``. Returns (roots, rounds run)."""
+    parent = torch.arange(core.shape[0], dtype=torch.int32,
+                          device=core.device)
+    n_rounds, changed = 0, True
+    while changed and n_rounds < max_rounds:
+        with trace.span("stage2.round", round=n_rounds):
+            root = pointer_jump(parent)
+            parent, changed = _hook_step(root, sweep_min(root), core)
+        n_rounds += 1
+    return pointer_jump(parent), n_rounds
+
+
 def _stage1_fn(sweep, state, n: int, device):
     zeros = torch.zeros((n,), dtype=torch.bool, device=device)
     iota = torch.arange(n, dtype=torch.int32, device=device)
     counts, _ = sweep(state, zeros, iota)
     return counts
-
-
-def _round_fn(sweep, state, parent, core):
-    root = pointer_jump(parent)
-    _, m = sweep(state, core, root)
-    return _hook_step(root, m, core)
-
-
-def _finalize_fn(sweep, state, parent, core):
-    root = pointer_jump(parent)
-    _, m = sweep(state, core, root)
-    return torch.where(core, root,
-                       torch.where(m != INT_MAX, m, -1)).to(torch.int32)
 
 
 def _scatter_sorted(values_s, order, n: int, fill):
@@ -121,16 +127,11 @@ def _sorted_driver_fn(sweep_sorted, max_rounds: int, state, order, core,
     n = order.shape[0]
     with trace.timed(timings, "stage2_s", dev):
         core_s = core[order.long()]
-        parent = torch.arange(n, dtype=torch.int32, device=dev)
-        n_rounds, changed = 0, True
-        while changed and n_rounds < max_rounds:
-            with trace.span("stage2.round", round=n_rounds):
-                root = pointer_jump(parent)
-                croot = torch.where(core_s, root, INT_MAX)
-                _, m = sweep_sorted(state, croot)
-                parent, changed = _hook_step(root, m, core_s)
-            n_rounds += 1
-        root = pointer_jump(parent)
+        root, n_rounds = hook_rounds(
+            core_s,
+            lambda root: sweep_sorted(
+                state, torch.where(core_s, root, INT_MAX))[1],
+            max_rounds)
 
     with trace.timed(timings, "border_s", dev):
         core_label = _label_ids(root, core_s, order)
@@ -173,24 +174,23 @@ def _frontier_driver_fn(frontier, max_rounds: int, state, order, core,
     n = order.shape[0]
     with trace.timed(timings, "stage2_s", dev):
         core_s = core[order.long()]
-        parent = torch.arange(n, dtype=torch.int32, device=dev)
         prev_croot = torch.full((n,), -1, dtype=torch.int32, device=dev)
         pending = torch.ones((frontier.n_tiles,), dtype=torch.bool,
                              device=dev)
         hist = torch.full((max_rounds,), -1, dtype=torch.int32, device=dev)
-        n_rounds, changed = 0, True
-        while changed and n_rounds < max_rounds:
-            with trace.span("stage2.round", round=n_rounds):
-                root = pointer_jump(parent)
-                croot = torch.where(core_s, root, INT_MAX)
-                qroot = torch.where(core_s, root, -1)
-                m, pending, n_live = frontier.sweep(
-                    state, croot, qroot, croot != prev_croot, pending)
-                hist[n_rounds] = n_live
-                parent, changed = _hook_step(root, m, core_s)
-                prev_croot = croot
-            n_rounds += 1
-        root = pointer_jump(parent)
+        r = 0
+
+        def sweep_min(root):
+            nonlocal prev_croot, pending, r
+            croot = torch.where(core_s, root, INT_MAX)
+            qroot = torch.where(core_s, root, -1)
+            m, pending, n_live = frontier.sweep(
+                state, croot, qroot, croot != prev_croot, pending)
+            hist[r] = n_live
+            prev_croot, r = croot, r + 1
+            return m
+
+        root, n_rounds = hook_rounds(core_s, sweep_min, max_rounds)
 
     with trace.timed(timings, "border_s", dev):
         core_label = _label_ids(root, core_s, order)
@@ -273,20 +273,17 @@ def _stages(eng: nb.Engine, n: int, min_pts: int, max_rounds: int,
         return DBSCANResult(labels=labels, core=core, counts=counts,
                             n_rounds=n_rounds, timings=timings)
 
-    # Generic stage 2: per-round loop over the original order.
+    # Generic stage 2: the rounds over the original order.
     with trace.timed(timings, "stage2_s", dev):
-        parent = torch.arange(n, dtype=torch.int32, device=dev)
-        n_rounds = 0
-        for r in range(max_rounds):
-            with trace.span("stage2.round", round=r):
-                parent, changed = _round_fn(eng.sweep, eng.state, parent,
-                                            core)
-            n_rounds += 1
-            if not changed:
-                break
+        root, n_rounds = hook_rounds(
+            core, lambda root: eng.sweep(eng.state, core, root)[1],
+            max_rounds)
 
     # Border attachment + final labels.
     with trace.timed(timings, "border_s", dev):
-        labels = _finalize_fn(eng.sweep, eng.state, parent, core)
+        _, m = eng.sweep(eng.state, core, root)
+        labels = torch.where(core, root,
+                             torch.where(m != INT_MAX, m, -1)
+                             ).to(torch.int32)
     return DBSCANResult(labels=labels, core=core, counts=counts,
                         n_rounds=n_rounds, timings=timings)

@@ -249,6 +249,17 @@ def csr_cells(points: torch.Tensor, side, origin, dims: int,
     return c
 
 
+def cell_codes(points: torch.Tensor, side, origin, dims: int, bits: int,
+               real: torch.Tensor | None = None):
+    """(cells, codes): :func:`csr_cells` and their int32 Morton codes, the
+    one such step of every CSR layout, query and route. Rows where
+    ``real`` is false take the reserved top cell 2^bits - 1 first."""
+    cells = csr_cells(points, side, origin, dims, bits)
+    if real is not None:
+        cells = torch.where(real[:, None], cells, (1 << bits) - 1)
+    return cells, _kref.morton_encode_ref(cells, dims=dims)
+
+
 def _csr_window_bounds(sorted_codes, cells, dims: int, bits: int):
     """Per query cell: [lo, hi) positions in the code-sorted corpus covering
     the occupied runs of all 9/27 window cells. Empty window cells are
@@ -264,8 +275,7 @@ def _csr_layout(points, side: float, origin: tuple, dims: int, bits: int):
     sort is stable, as ``jnp.argsort`` is: ties in the Morton code keep
     their input order. Each pass adds one to the ``csr_layouts`` counter."""
     trace.count("csr_layouts")
-    cells = csr_cells(points, side, origin, dims, bits)
-    codes = _kref.morton_encode_ref(cells, dims=dims)
+    cells, codes = cell_codes(points, side, origin, dims, bits)
     order = torch.argsort(codes, stable=True)
     sorted_codes = codes[order]
     lo, hi = _csr_window_bounds(sorted_codes, cells[order], dims, bits)

@@ -45,7 +45,6 @@ from .. import trace
 from ..kernels import csr_sweep as _csr
 from ..kernels import gathered_sweep as _gathered
 from ..kernels import ops
-from ..kernels import ref as _kref
 from ..kernels.ref import _dist2, eps2_tensor
 from . import engines
 from . import grid as grid_mod
@@ -282,9 +281,8 @@ def _csr_cross_query_fn(spec: grid_mod.CSRGridSpec, eps2: float, slab: int,
         n = codes.shape[0]
         dev = q.device
         valid = torch.arange(Qp, device=dev) < nq
-        qcells = grid_mod.csr_cells(q, spec.side, spec.origin, spec.dims,
-                                    spec.bits)
-        qcodes = _kref.morton_encode_ref(qcells, dims=spec.dims)
+        qcells, qcodes = grid_mod.cell_codes(q, spec.side, spec.origin,
+                                             spec.dims, spec.bits)
         # stable sort by code, padding keyed to the end of the batch
         qorder = torch.argsort(torch.where(valid, qcodes, INT_MAX),
                                stable=True)

@@ -10,8 +10,9 @@ deterministic equivalent, so the port's labels and round counts equal it:
   * path compression is full pointer jumping (``p = p[p]`` to fixpoint).
 
 Pointers only ever decrease, so the parent forest is acyclic and
-``pointer_jump`` terminates in O(log depth) sweeps. The data-dependent loops
-are host-checked: one device-to-host sync per iteration.
+``pointer_jump`` terminates in O(log depth) sweeps; it is the port's one
+path compression. The data-dependent loops are host-checked: one
+device-to-host sync per iteration.
 """
 from __future__ import annotations
 

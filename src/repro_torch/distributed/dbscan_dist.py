@@ -47,9 +47,8 @@ import time
 import torch
 
 from ..core import engines
-from ..core.dbscan import DBSCANResult
+from ..core.dbscan import DBSCANResult, hook_rounds
 from ..core.engines import synchronize
-from ..kernels import ref as _kref
 from .comm import ThreadGroup
 
 INT_MAX = 2 ** 31 - 1
@@ -191,9 +190,8 @@ def make_csr_sweep(cand_pts, eps: float, n_cand: int, cfg: DistConfig):
     # side grows past ε only when the extent saturates the Morton bit budget
     side = torch.maximum(torch.tensor(eps, dtype=torch.float32, device=dev),
                          (hi3 - lo3).amax() / (max_cells - 1) * (1 + 1e-5))
-    cells = grid_mod.csr_cells(cand_pts, side, lo3, 3, bits)
-    cells = torch.where(real[:, None], cells, (1 << bits) - 1)  # pads → top
-    codes = _kref.morton_encode_ref(cells, dims=3)
+    cells, codes = grid_mod.cell_codes(cand_pts, side, lo3, 3, bits,
+                                       real=real)
     order = torch.argsort(codes, stable=True).to(torch.int32)
     ol = order.long()
     spts = cand_pts[ol]
@@ -318,35 +316,15 @@ engines.register_local_engine("grid", _local_grid)
 engines.register_local_engine("bvh", _local_bvh)
 
 
-def _compress(parent):
-    """Pointer jumping to the fixed point (one host read a jump)."""
-    p = parent
-    while True:
-        p2 = p[p.long()]
-        if torch.equal(p2, p):
-            return p2
-        p = p2
+def _local_components(sweep_all, core, rounds):
+    """Local-index union-find over the rank's points (owned ∪ halo): the
+    batch drivers' hooking rounds (``core.dbscan.hook_rounds``) over
+    ``sweep_all``.
 
-
-def _local_components(sweep_all, core, n_local, rounds):
-    """Local-index union-find over the rank's points (owned ∪ halo).
-
-    Returns (root (n_local,) int32, rounds run)."""
-    parent = torch.arange(n_local, dtype=torch.int32, device=core.device)
-    it = 0
-    changed = True
-    while changed and it < rounds:
-        root = _compress(parent)
-        croot = torch.where(core, root, INT_MAX)
-        _, m = sweep_all(croot)
-        tgt = torch.minimum(torch.where(core, m, root), root)
-        p2 = root.scatter_reduce(0, root.long(), tgt, "amin",
-                                 include_self=True)
-        p2 = _compress(p2)
-        changed = not torch.equal(p2, root)
-        parent = p2
-        it += 1
-    return _compress(parent), it
+    Returns (root (n,) int32, rounds run)."""
+    return hook_rounds(
+        core, lambda root: sweep_all(torch.where(core, root, INT_MAX))[1],
+        rounds)
 
 
 def _pack_by_dest(values, dest, n_dest: int, cap: int):
@@ -520,7 +498,7 @@ def _rank_dbscan(comm, points, n: int, eps: float, min_pts: int,
 
     # ---- 5. local components over owned ∪ halo ----
     root_local, local_rounds = _local_components(
-        sweep_all, core_all, n_cand, cfg.local_uf_rounds)
+        sweep_all, core_all, cfg.local_uf_rounds)
     root_l = root_local.long()
     steps("components")
 

@@ -9,12 +9,12 @@ online on the snapshot's device at every ingest:
      neighbor counts and the corpus-cluster anchor per delta point,
   2. **self-sweep** of the delta (``pairwise_sweep`` all-pairs — the delta
      is bounded, so O(d²) beats building a structure per chunk),
-  3. **union-find hooking** over the delta (the scatter-min machinery of
-     ``core/union_find.py``, the same ``_hook_step`` the batch driver
-     runs, one ``pairwise_sweep`` per round, the host checking ``changed``
-     once a round): delta cores merge among themselves, components adopt
-     their minimum corpus anchor label, anchor-free components open fresh
-     clusters labeled ``n_corpus + min delta index`` (deterministic).
+  3. **union-find hooking** over the delta (``core.dbscan.hook_rounds``,
+     the loop the batch drivers run, one ``pairwise_sweep`` per round, the
+     host checking ``changed`` once a round): delta cores merge among
+     themselves, components adopt their minimum corpus anchor label,
+     anchor-free components open fresh clusters labeled
+     ``n_corpus + min delta index`` (deterministic).
 
 Online labels are exact DBSCAN over (frozen corpus ∪ delta) *except* that
 corpus points keep their snapshot labels — a delta point can promote a
@@ -61,8 +61,7 @@ import numpy as np
 import torch
 
 from ..core import neighbors as nb
-from ..core.dbscan import _hook_step
-from ..core.union_find import pointer_jump
+from ..core.dbscan import hook_rounds
 from ..distributed import checkpoint as ckpt
 from ..kernels import ops
 from . import faults
@@ -129,14 +128,12 @@ def _delta_label_fn(spec, eps2: float, min_pts: int, n_corpus: int,
         counts = counts_x + counts_s            # self included via self-join
         core_d = valid & (counts >= min_pts)
 
-        # hook delta cores into components (same rounds as the batch driver)
-        parent, changed, it = iota, True, 0
-        while changed and it < max_rounds:
-            root = pointer_jump(parent)
-            _, m = ops.pairwise_sweep(dpts, dpts, core_d, root, eps2)
-            parent, changed = _hook_step(root, m, core_d)
-            it += 1
-        root = pointer_jump(parent)
+        # hook delta cores into components (the batch drivers' rounds)
+        root, _ = hook_rounds(
+            core_d,
+            lambda root: ops.pairwise_sweep(dpts, dpts, core_d, root,
+                                            eps2)[1],
+            max_rounds)
 
         # per component: min corpus anchor over core members, else a fresh
         # deterministic cluster id (n_corpus + min delta index of a core)

@@ -132,10 +132,12 @@ class ShardMap:
     def n_shards(self) -> int:
         return len(self.pos_cuts) - 1
 
-    def _cells(self, points_np: np.ndarray) -> np.ndarray:
+    def _cell_codes(self, points_np: np.ndarray) -> tuple:
+        """(cells, int64 codes) of host points under the tier's plan."""
         pts = torch.as_tensor(np.asarray(points_np, np.float32))
-        return grid_mod.csr_cells(pts, self.side, self.origin, self.dims,
-                                  self.bits).numpy()
+        cells, codes = grid_mod.cell_codes(pts, self.side, self.origin,
+                                           self.dims, self.bits)
+        return cells.numpy(), codes.numpy().astype(np.int64)
 
     def _codes_of(self, cells_np: np.ndarray) -> np.ndarray:
         codes = kref.morton_encode_ref(torch.as_tensor(cells_np),
@@ -150,7 +152,7 @@ class ShardMap:
 
     def owner_of(self, points_np) -> np.ndarray:
         """(m,) int32 owning shard per point — the ingest route."""
-        codes = self._codes_of(self._cells(points_np))
+        _, codes = self._cell_codes(points_np)
         return np.searchsorted(self.cut_codes[1:-1], codes,
                                side="right").astype(np.int32)
 
@@ -164,10 +166,10 @@ class ShardMap:
         that makes the engine's window sweep exact — so a shard outside
         this mask cannot contribute a count, a minroot, or a mind2.
         """
-        cells = self._cells(points_np)
+        cells, codes = self._cell_codes(points_np)
         # a cell's code names it (the clipped cells fit the code's bits):
         # the windows of each distinct query cell, once
-        _, first, inv = np.unique(self._codes_of(cells), return_index=True,
+        _, first, inv = np.unique(codes, return_index=True,
                                   return_inverse=True)
         cells = cells[first]
         m = len(cells)
@@ -202,11 +204,10 @@ def _build_part(shard_id: int, pts: np.ndarray, labels_global: np.ndarray,
     local = np.where(labels_global >= 0,
                      np.searchsorted(table, labels_global),
                      -1).astype(np.int32)
-    spec_j = grid_mod.plan_csr_grid(pts, eps, dims=tier_spec.dims,
-                                    chunk=tier_spec.chunk,
-                                    block_k=tier_spec.block_k, device=device)
     pts_dev = torch.as_tensor(pts, dtype=torch.float32, device=device)
-    g = grid_mod.build_csr_grid(pts_dev, spec_j)
+    spec_j, g = grid_mod.plan_and_build_csr_grid(
+        pts_dev, eps, dims=tier_spec.dims, chunk=tier_spec.chunk,
+        block_k=tier_spec.block_k)
     if bool(g.overflow):
         raise AssertionError(
             f"shard {shard_id} CSR build overflowed its planned slab — "

@@ -25,8 +25,10 @@ Spans of the main path (``dbscan``, engine ``grid``), outermost first:
 ``build.check``, where a reused plan builds under ``build.layout`` and
 ``build.slabs`` instead of ``plan``; and
 ``dbscan`` > ``stage1``, ``stage2`` (> ``stage2.round``, attr ``round``),
-``border``. ``serve.assign`` > ``assign.pad``, ``assign.to_device``,
-``assign.sweep``, ``assign.readback``.
+``border``; ``core.dbscan.hook_rounds`` opens ``stage2.round`` wherever
+it runs (ingest and distributed ranks too). ``serve.assign`` >
+``assign.pad``, ``assign.to_device``, ``assign.sweep``,
+``assign.readback``.
 
 Counters: ``h2d_bytes`` and ``d2h_bytes``, the bytes of each bulk copy
 between the host and another device (0 on a CPU run); ``host_syncs``, each

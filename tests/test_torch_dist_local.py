@@ -26,10 +26,11 @@ query's hits on the empty slots of its window, the port's grid query
 carries a −BIG sentinel and hits nothing. The driver never reads a padding
 row's output: a padding row is never core.
 
-The helpers ``_pack_by_dest``, ``_select_first_k``, ``_compress``,
-``_local_components`` and the slab-cut arithmetic (the reference's
-``make_distributed_dbscan`` lines, jitted and op by op) are held bitwise
-too.
+The helpers ``_pack_by_dest``, ``_select_first_k``, ``_local_components``
+and the slab-cut arithmetic (the reference's ``make_distributed_dbscan``
+lines, jitted and op by op) are held bitwise too, and so is
+``union_find.pointer_jump``, the port's one path compression, to the
+reference's ``_compress``.
 """
 import dataclasses
 
@@ -41,6 +42,7 @@ import torch
 
 from repro.data import synth
 from repro.distributed import dbscan_dist as jdd
+from repro_torch.core.union_find import pointer_jump
 from repro_torch.distributed import dbscan_dist as tdd
 
 INT_MAX = np.iinfo(np.int32).max
@@ -298,7 +300,7 @@ def test_compress_matches_reference(seed):
         parent[node] = rank[rng.integers(0, pos + 1)]
     ref = np.asarray(jdd._compress(jnp.asarray(parent)))
     np.testing.assert_array_equal(
-        tdd._compress(torch.as_tensor(parent)).numpy(), ref)
+        pointer_jump(torch.as_tensor(parent)).numpy(), ref)
 
 
 @pytest.mark.parametrize("rounds", [1, 32])
@@ -317,8 +319,7 @@ def test_local_components_matches_reference(rounds):
     sweep_all, _ = tdd.make_csr_sweep(
         torch.as_tensor(cand), eps, n_cand,
         tdd.DistConfig(local_engine="csr"))
-    got, it = tdd._local_components(sweep_all, torch.as_tensor(core), n_cand,
-                                    rounds)
+    got, it = tdd._local_components(sweep_all, torch.as_tensor(core), rounds)
     np.testing.assert_array_equal(got.numpy(), ref)
     assert 1 <= it <= rounds
 

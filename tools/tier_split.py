@@ -11,10 +11,10 @@ minPts 16), seed 0, it builds the snapshot on the card, splits it into
 line per dataset with the median host ms over ``--reps`` runs (each ending
 in a device synchronize) of: the single-session ``assign``; the tier's
 ``assign``; its routing (``ShardMap.window_shards``) and, beside it, the
-parts of the reference's routing (cells, every query's window codes, and
-their two bisections of every corpus code, which ``window_shards``
-replaced by one bisection of each distinct query cell's window codes
-against the distinct occupied codes);
+parts of the reference's routing (cells and their codes, every query's
+window codes, and their two bisections of every corpus code, which
+``window_shards`` replaced by one bisection of each distinct query cell's
+window codes against the distinct occupied codes);
 each shard's leg (``assign`` of its routed queries on its snapshot); and
 the legs per query. A SHA-1 of the tier's labels, counts and dist bytes
 lets two trees be held bit-identical. Exits 2 without a CUDA device.
@@ -80,7 +80,7 @@ def main() -> int:
         row["single_assign_ms"] = host_ms(lambda: serve.assign(snap, q))
         row["tier_assign_ms"] = host_ms(lambda: tier.assign(q))
         row["window_shards_ms"] = host_ms(lambda: smap.window_shards(q))
-        cells = smap._cells(q)
+        cells, _ = smap._cell_codes(q)
         offs = shard_mod._window_offsets(smap.dims)
         cap = (1 << smap.bits) - 2
         nbc = np.clip(cells[None, :, :] + offs[:, None, :], 0, cap)
@@ -88,7 +88,7 @@ def main() -> int:
             nbc[:, :, 2] = 0
         codes = smap._codes_of(nbc.reshape(-1, 3))
         row["routing_parts_ms"] = dict(
-            cells=host_ms(lambda: smap._cells(q)),
+            cell_codes=host_ms(lambda: smap._cell_codes(q)),
             window_codes=host_ms(lambda: smap._codes_of(nbc.reshape(-1, 3))),
             bisect_left=host_ms(lambda: np.searchsorted(smap.codes, codes,
                                                         side="left")),
